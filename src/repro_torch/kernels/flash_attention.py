@@ -1,0 +1,95 @@
+"""Wrapper of the Hopper flash-attention kernel (``csrc/flash_attention.cu``).
+
+The kernel replaces ``repro/kernels/flash_attention.py::_flash_kernel``;
+its note in the source gives its bound and design.  This wrapper takes the
+model's layout directly — q ``(B, Sq, H, dh)``, k/v ``(B, Sk, K, dh)`` with
+``H % K == 0`` — and passes strides, so GQA heads are never copied.  It
+checks device, dtype, shape and contiguity and raises on anything else,
+allocates the output with ``torch.empty``, launches on the current stream
+without synchronizing, and raises on the launch's ``cudaError_t``.
+``flash_attention.launches`` counts the launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Optional
+
+import torch
+
+from . import _build
+
+SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+MAX_GRID_Y = 65535
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+
+
+@functools.cache
+def _kernel():
+    """The C entry point ``flash_attention_fwd``, built and typed once."""
+    fn = _build.load("flash_attention").flash_attention_fwd
+    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                   _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L, _L,
+                   _F, _I, _I, _F, _P]
+    fn.restype = _I
+    return fn
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.device.type != "cuda":
+            raise ValueError(f"{name} is on {t.device}; the kernel takes CUDA tensors")
+        if t.dtype not in SUPPORTED_DTYPES:
+            raise TypeError(f"{name} has dtype {t.dtype}; supported: {SUPPORTED_DTYPES}")
+        if t.dim() != 4:
+            raise ValueError(f"{name} must be 4-D (B, S, heads, dh), got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q/k/v are on different devices")
+    B, Sq, H, dh = q.shape
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != dh:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)}")
+    K = k.shape[2]
+    if K == 0 or H % K:
+        raise ValueError(f"n_heads {H} is not a multiple of n_kv_heads {K}")
+    if dh not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(f"head dim {dh} not in {SUPPORTED_HEAD_DIMS}")
+    if min(B, Sq, k.shape[1]) == 0 or B * H > MAX_GRID_Y:
+        raise ValueError(f"unsupported sizes B={B}, Sq={Sq}, Sk={k.shape[1]}, H={H}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """Attention on the card.  q: (B, Sq, H, dh); k, v: (B, Sk, K, dh).
+    Returns (B, Sq, H, dh) in q's dtype."""
+    _check(q, k, v)
+    B, Sq, H, dh = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    scale = (1.0 / math.sqrt(dh)) if scale is None else scale
+    with torch.cuda.device(q.device):
+        o = torch.empty_like(q)
+        err = _kernel()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            int(q.dtype == torch.bfloat16), B, H, K, Sq, Sk, dh,
+            *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+            float(scale), int(causal), int(window), float(softcap),
+            torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_attention_fwd launch failed: cudaError_t {err}")
+    flash_attention.launches += 1
+    return o
+
+
+flash_attention.launches = 0
