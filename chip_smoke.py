@@ -7,22 +7,38 @@ Needs one CUDA card of compute capability >= 9.0 and ``nvcc``; exits
 non-zero, printing no result, when there is no card or no port beside the
 script.  Phases, each raising on failure (nothing is caught):
 
-  build  compile every kernel of the serving path from ``src/repro_torch/csrc``
-         (one nvcc per source, started together);
+  build  compile every kernel source of ``src/repro_torch/csrc`` (one nvcc
+         per source, started together) and print ptxas's registers and
+         spills for each instantiation;
   A      each kernel against its plain PyTorch version on the card, case by
          case (the tolerances of the JAX package's kernel tests: bf16 2e-2,
-         f32 1e-5, TF32 off), including the serving prefill shape;
-  B      the serving path: ``repro_torch.launch.serve.serve`` on yi-34b at
-         its published widths, depth cut to 12 layers (the only cut), bf16
-         weights drawn from a seed, batch 4, prompt 2048, 3 rounds x 16
-         tokens, all policies, async windowed analysis.  The flash-attention
-         kernel must launch once per layer of the prefill; the session must
-         report 3 windows; the prefill's last-position logits must agree with
-         a prefill through the plain attention (``models.layers.mha``) on the
-         same weights;
-  C      CUDA-event timings at the prefill shape: the kernel, its plain
-         version, its bound and, as a yardstick the port never calls,
-         ``F.scaled_dot_product_attention``.
+         f32 1e-5, TF32 off), including each serving shape: K1 (flash
+         attention, also at d_head 256 with 16 query heads on one KV head and
+         a window), K3 (WKV6, y and the final state, T = 1 from a state,
+         ragged T) and K2 (RG-LRU scan, from h0, S = 1);
+  B      the serving path, ``repro_torch.launch.serve.serve`` with all
+         policies and async windowed analysis, bf16 weights drawn from a
+         seed, 3 rounds x 16 tokens, on three models in turn (each freed
+         before the next):
+           yi-34b at its published widths, depth cut to 12 layers (the only
+             cut), batch 4, prompt 2048: K1 once per layer per prefill;
+           rwkv6-3b at published widths and full depth (32 layers), batch 4,
+             prompt 2048: K3 once per layer per prefill and decode step;
+           recurrentgemma-9b at published widths and full depth (38 layers),
+             batch 2, prompt 4096 (longer than its 2048 window, so the window
+             mask and the ring-buffer cache do real work): K2 once per rec
+             layer per prefill and decode step, K1 once per local layer per
+             prefill.
+         Every kernel's launch count is set to 0 just before a model is
+         served and read just after; the session must report one window per
+         round; the prefill's last-position logits must agree with a prefill
+         through the models' plain forms (``transformer.PLAIN``) on the same
+         weights (bf16: rtol 5e-2, atol 1e-1 times the logits' rms where
+         that exceeds 1, as for recurrentgemma's tied embedding);
+  C      CUDA-event timings at the serving shapes: each kernel, its plain
+         version, its bound and, for K1, ``F.scaled_dot_product_attention``
+         as a yardstick the port never calls (no single PyTorch call
+         computes K2's or K3's recurrence).
 
 The last lines are the card's name and power limit, one JSON line of kernel
 records, and the verdict ``{"ok": true, "device": {...}}``.
@@ -30,6 +46,7 @@ records, and the verdict ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -38,16 +55,21 @@ from pathlib import Path
 
 SRC = Path(__file__).resolve().parent / "src"
 
-N_LAYERS = 12
-BATCH, PROMPT, ROUNDS, TOKENS = 4, 2048, 3, 16
+ROUNDS, TOKENS = 3, 16
+YI_LAYERS, YI_BATCH, YI_PROMPT = 12, 4, 2048
+RWKV_BATCH, RWKV_PROMPT = 4, 2048
+RG_BATCH, RG_PROMPT = 2, 4096
 H, KH, DH = 56, 8, 128           # yi-34b attention widths
+RG_H, RG_KH, RG_DH, RG_WINDOW, RG_W = 16, 1, 256, 2048, 4096   # recurrentgemma-9b
+RWKV_H, RWKV_DH = 40, 64         # rwkv6-3b heads
 TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2), "float32": dict(rtol=1e-5, atol=1e-5)}
 LOGITS_TOL = dict(rtol=5e-2, atol=1e-1)   # bf16 model, as the JAX package's
                                           # prefill/decode consistency test
 
-# Dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s, HBM bytes/s.
-PEAKS = {"H100 PCIe": (756e12, 2.0e12), "H100 NVL": (835e12, 3.9e12),
-         "H100": (989e12, 3.35e12)}
+# Dense peaks (NVIDIA data sheets): bf16 tensor-core FLOP/s, fp32 (no tensor
+# cores) FLOP/s, HBM bytes/s.
+PEAKS = {"H100 PCIe": (756e12, 51.2e12, 2.0e12), "H100 NVL": (835e12, 60e12, 3.9e12),
+         "H100": (989e12, 67e12, 3.35e12)}
 
 
 def card_line() -> str:
@@ -64,6 +86,12 @@ def peaks(name: str):
     raise RuntimeError(f"no peak rates known for {name!r}")
 
 
+def bound(flops: float, nbytes: float, flops_peak: float, bw_peak: float):
+    """(least time in ms, what bounds it) for this work on the card."""
+    t_ops, t_bytes = flops / flops_peak * 1e3, nbytes / bw_peak * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     import torch
     for _ in range(warmup):
@@ -77,6 +105,23 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def timed(fn):
+    """(fn's result, its ms on the card by CUDA events), one call."""
+    import torch
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def free():
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def qkv(B, S, h, kh, dh, dtype, seed):
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -84,8 +129,30 @@ def qkv(B, S, h, kh, dh, dtype, seed):
     return mk(h), mk(kh), mk(kh)
 
 
-def phase_a(torch, ops, fa):
-    """Kernel vs plain version; returns the max abs error at the prefill shape."""
+def wkv_inputs(B, T, h, dh, dtype, seed, with_s0):
+    """r, k, v, logw, u, s0 as the JAX package's kernel tests draw them."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    mk = lambda: 0.5 * torch.randn((B, T, h, dh), generator=g, device="cuda")
+    r, k, v = mk().to(dtype), mk().to(dtype), mk().to(dtype)
+    logw = -torch.exp(torch.clamp(mk(), -3, 0.5))
+    u = 0.3 * torch.randn((h, dh), generator=g, device="cuda")
+    s0 = torch.randn((B, h, dh, dh), generator=g, device="cuda") if with_s0 else None
+    return r, k, v, logw, u, s0
+
+
+def scan_inputs(B, S, W, seed, with_h0):
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    a = 0.2 + 0.79 * torch.rand((B, S, W), generator=g, device="cuda")
+    b = torch.randn((B, S, W), generator=g, device="cuda")
+    h0 = torch.randn((B, W), generator=g, device="cuda") if with_h0 else None
+    return a, b, h0
+
+
+def phase_a_attention(torch, ops, fa):
+    """K1 vs plain; returns the max abs error at each serving prefill shape."""
+    rg_kw = dict(causal=True, window=RG_WINDOW)
     cases = [  # name, B, S, H, KH, dh, dtype, kwargs
         ("causal yi", 2, 1024, H, KH, DH, "bfloat16", dict(causal=True)),
         ("causal yi", 2, 1024, H, KH, DH, "float32", dict(causal=True)),
@@ -100,22 +167,138 @@ def phase_a(torch, ops, fa):
         ("dh=64 scale", 2, 256, 8, 8, 64, "float32", dict(causal=True, scale=0.2)),
         ("GQA G=1", 2, 512, 8, 8, DH, "bfloat16", dict(causal=True)),
         ("GQA G=7", 2, 512, 14, 2, DH, "float32", dict(causal=True)),
-        ("prefill shape", BATCH, PROMPT, H, KH, DH, "bfloat16", dict(causal=True)),
+        ("dh=256 G=16 w", 2, 1000, RG_H, RG_KH, RG_DH, "float32", dict(causal=True, window=300)),
+        ("dh=256 G=16 w", 2, 1000, RG_H, RG_KH, RG_DH, "bfloat16", dict(causal=True, window=300)),
+        ("dh=256 full", 1, 333, RG_H, RG_KH, RG_DH, "float32", dict(causal=False)),
+        ("prefill yi", YI_BATCH, YI_PROMPT, H, KH, DH, "bfloat16", dict(causal=True)),
+        ("prefill rg", RG_BATCH, RG_PROMPT, RG_H, RG_KH, RG_DH, "bfloat16", rg_kw),
     ]
-    err = None
+    errs = {}
     for i, (name, B, S, h, kh, dh, dt, kw) in enumerate(cases):
         q, k, v = qkv(B, S, h, kh, dh, getattr(torch, dt), seed=100 + i)
         got = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
         want = ops.attention_ref(q, k, v, **kw)
         e = (got.float() - want.float()).abs().max().item()
-        print(f"[A] {name:14s} B={B} S={S} H={h} K={kh} dh={dh} {dt:8s} "
+        print(f"[A] K1 {name:14s} B={B} S={S} H={h} K={kh} dh={dh} {dt:8s} "
               f"{kw}: max|err|={e:.3e} tol={TOL[dt]}")
         torch.testing.assert_close(got.float(), want.float(), **TOL[dt])
-        if name == "prefill shape":
-            err = e
+        errs[name] = e
         del q, k, v, got, want
+        free()
+    return errs["prefill yi"], errs["prefill rg"]
+
+
+def phase_a_wkv6(torch, ops, k3):
+    """K3 vs plain (y and the final state); returns the max abs error of y
+    at the serving prefill shape."""
+    cases = [  # name, B, T, H, dh, dtype, with_s0
+        ("T=1 from s0", RWKV_BATCH, 1, RWKV_H, RWKV_DH, "float32", True),
+        ("T=1 from s0", RWKV_BATCH, 1, RWKV_H, RWKV_DH, "bfloat16", True),
+        ("ragged T=37", 2, 37, 8, RWKV_DH, "float32", True),
+        ("ragged T=37", 2, 37, 8, RWKV_DH, "bfloat16", False),
+        ("T=100 dh=32", 2, 100, 4, 32, "float32", False),
+        ("T=256", 3, 256, 5, RWKV_DH, "float32", True),
+        ("prefill rwkv", RWKV_BATCH, RWKV_PROMPT, RWKV_H, RWKV_DH, "bfloat16", False),
+    ]
+    err = None
+    for i, (name, B, T, h, dh, dt, with_s0) in enumerate(cases):
+        args = wkv_inputs(B, T, h, dh, getattr(torch, dt), seed=200 + i, with_s0=with_s0)
+        y, s = k3.wkv6_kernel(*args)
+        torch.cuda.synchronize()
+        y_want, s_want = ops.wkv6_ref(*args)
+        ey = (y.float() - y_want.float()).abs().max().item()
+        es = (s - s_want).abs().max().item()
+        print(f"[A] K3 {name:14s} B={B} T={T} H={h} dh={dh} {dt:8s} s0={with_s0}: "
+              f"y max|err|={ey:.3e} tol={TOL[dt]}; s_final max|err|={es:.3e} "
+              f"tol={TOL['float32']}")
+        torch.testing.assert_close(y.float(), y_want.float(), **TOL[dt])
+        torch.testing.assert_close(s, s_want, **TOL["float32"])
+        if name == "prefill rwkv":
+            err = ey
+        del args, y, s, y_want, s_want
+        free()
     return err
+
+
+def phase_a_rglru(torch, ops, k2):
+    """K2 vs plain; returns the max abs error at the serving prefill shape."""
+    cases = [  # name, B, S, W, with_h0
+        ("S=1 from h0", RG_BATCH, 1, RG_W, True),
+        ("from h0", 2, 64, 128, True),
+        ("ragged S=37", 3, 37, 100, True),
+        ("S=300", 1, 300, 64, False),
+        ("prefill rg", RG_BATCH, RG_PROMPT, RG_W, False),
+    ]
+    err = None
+    for i, (name, B, S, W, with_h0) in enumerate(cases):
+        args = scan_inputs(B, S, W, seed=300 + i, with_h0=with_h0)
+        got = k2.rglru_scan_kernel(*args)
+        torch.cuda.synchronize()
+        want = ops.rglru_scan_ref(*args)
+        e = (got - want).abs().max().item()
+        print(f"[A] K2 {name:14s} B={B} S={S} W={W} float32 h0={with_h0}: "
+              f"max|err|={e:.3e} tol={TOL['float32']}")
+        torch.testing.assert_close(got, want, **TOL["float32"])
+        if name == "prefill rg":
+            err = e
+        del args, got, want
+        free()
+    return err
+
+
+def serve_model(torch, cfg, batch, prompt, counters, expected):
+    """Phase B for one model: serve it with every launch count set to 0
+    just before, check the counts, windows, tokens and the kernel-vs-plain
+    prefill logits; returns the counts and the timings."""
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.transformer import PLAIN
+
+    print(f"[B] serving {cfg.name} at full width (d_model={cfg.d_model}, "
+          f"H={cfg.n_heads}, K={cfg.n_kv_heads}, d_ff={cfg.d_ff}, vocab={cfg.vocab_size}, "
+          f"{cfg.n_layers} layers: {dict((k, cfg.layer_kinds.count(k)) for k in sorted(set(cfg.layer_kinds)))}); "
+          f"batch {batch}, prompt {prompt}, {ROUNDS} rounds x {TOKENS} tokens")
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    res = serve(cfg, batch=batch, prompt_len=prompt, tokens=TOKENS,
+                rounds=ROUNDS, policies="all", device="cuda")
+    launches = {name: fn.launches for name, fn in counters.items()}
+    print(f"[B] {cfg.name}: launches {launches}, expected {expected}")
+    if launches != expected:
+        raise RuntimeError(f"{cfg.name}: kernel launches {launches} on the serving "
+                           f"path, expected {expected}")
+    windows = res.report.windows
+    if len(windows) != ROUNDS:
+        raise RuntimeError(f"{len(windows)} analysis windows, expected {ROUNDS}")
+    for w in windows:
+        if w.failed:
+            raise RuntimeError(f"analysis window {w.title()} failed")
+        cccrs = [res.tree.name(r) for r in w.report.internal.cccrs]
+        print(f"[B] {cfg.name} window {w.title()}: internal bottlenecks {cccrs or ['(none)']}")
+    if res.tokens.shape != (batch, 1 + ROUNDS * TOKENS):
+        raise RuntimeError(f"decoded tokens have shape {res.tokens.shape}")
+    if not torch.isfinite(res.prefill_logits).all():
+        raise RuntimeError("non-finite prefill logits")
+    s_buf = prompt + ROUNDS * TOKENS
+    (plain_logits, _), plain_ms = timed(lambda: res.model.prefill(res.prompts, s_buf,
+                                                                  kernels=PLAIN))
+    lerr = (plain_logits - res.prefill_logits).abs().max().item()
+    agree = (plain_logits.argmax(-1) == res.prefill_logits.argmax(-1)).float().mean().item()
+    # tied embeddings give logits of rms ~sqrt(d_model) where untied ones
+    # have rms ~1: the absolute tolerance is taken relative to the rms
+    rms = plain_logits.pow(2).mean().sqrt().item()
+    tol = dict(LOGITS_TOL, atol=LOGITS_TOL["atol"] * max(1.0, rms))
+    print(f"[B] {cfg.name} prefill logits, kernels vs plain forms: max|err|={lerr:.3e} "
+          f"(logits rms {rms:.3f}) tol={tol}; greedy-token agreement {agree:.3f}")
+    torch.testing.assert_close(res.prefill_logits, plain_logits, **tol)
+    del plain_logits
+    warm_ms = cuda_ms(lambda: res.model.prefill(res.prompts, s_buf), iters=2, warmup=1)
+    out = dict(launches=launches, prefill_ms=res.prefill_s * 1e3, tok_s=res.decode_tok_s,
+               warm_ms=warm_ms, plain_ms=plain_ms, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del res
+    free()
+    return out
 
 
 def main() -> int:
@@ -134,104 +317,165 @@ def main() -> int:
     from repro_torch.device import resolve_device
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch.serve import serve
-    from repro_torch.models.layers import mha
+    from repro_torch.kernels import rglru_scan as k2
+    from repro_torch.kernels import wkv6 as k3
 
     dev = resolve_device("cuda")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"capability {torch.cuda.get_device_capability(dev)}")
+    t_start = time.perf_counter()
 
     # -- build ---------------------------------------------------------------
     t0 = time.perf_counter()
-    libs = _build.build(["flash_attention"])
+    libs = _build.build(_build.SOURCES)
     print(f"[build] {sorted(libs)} in {time.perf_counter() - t0:.1f} s")
-    for line in (_build.BUILD_DIR / "flash_attention.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[build] {line.strip()}")
+    for name in _build.SOURCES:
+        for line in (_build.BUILD_DIR / f"{name}.log").read_text().splitlines():
+            if "Compiling entry" in line or "registers" in line or "spill" in line:
+                print(f"[build] {name}: {line.strip()}")
 
-    # -- A: kernel vs plain --------------------------------------------------
-    max_err = phase_a(torch, ops, fa)
-    torch.cuda.empty_cache()
+    # -- A: kernels vs plain -----------------------------------------------------
+    k1_err, k1_rg_err = phase_a_attention(torch, ops, fa)
+    k3_err = phase_a_wkv6(torch, ops, k3)
+    k2_err = phase_a_rglru(torch, ops, k2)
+    print(f"[A] passed in {time.perf_counter() - t_start:.1f} s since start")
 
-    # -- B: the serving path ---------------------------------------------------
-    cfg = dataclasses.replace(get_config("yi-34b"), n_layers=N_LAYERS,
-                              param_dtype="bfloat16")
-    print(f"[B] serving {cfg.name} at full width (d_model={cfg.d_model}, "
-          f"H={cfg.n_heads}, K={cfg.n_kv_heads}, d_ff={cfg.d_ff}, "
-          f"vocab={cfg.vocab_size}); depth cut 60 -> {N_LAYERS} layers")
-    fa.flash_attention.launches = 0
-    res = serve(cfg, batch=BATCH, prompt_len=PROMPT, tokens=TOKENS,
-                rounds=ROUNDS, policies="all", device="cuda")
-    launches = fa.flash_attention.launches
-    if launches != N_LAYERS:
-        raise RuntimeError(f"flash attention launched {launches} times on the "
-                           f"serving path, expected {N_LAYERS} (one per layer)")
-    windows = res.report.windows
-    if len(windows) != ROUNDS:
-        raise RuntimeError(f"{len(windows)} analysis windows, expected {ROUNDS}")
-    for w in windows:
-        if w.failed:
-            raise RuntimeError(f"analysis window {w.title()} failed")
-        cccrs = [res.tree.name(r) for r in w.report.internal.cccrs]
-        print(f"[B] window {w.title()}: internal bottlenecks {cccrs or ['(none)']}")
-    if res.tokens.shape != (BATCH, 1 + ROUNDS * TOKENS):
-        raise RuntimeError(f"decoded tokens have shape {res.tokens.shape}")
-    if not torch.isfinite(res.prefill_logits).all():
-        raise RuntimeError("non-finite prefill logits")
-    s_buf = PROMPT + ROUNDS * TOKENS
-    plain_logits, _ = res.model.prefill(res.prompts, s_buf, attention=mha)
-    lerr = (plain_logits - res.prefill_logits).abs().max().item()
-    agree = (plain_logits.argmax(-1) == res.prefill_logits.argmax(-1)).float().mean().item()
-    print(f"[B] prefill logits, kernel vs plain attention: max|err|={lerr:.3e} "
-          f"tol={LOGITS_TOL}; greedy-token agreement {agree:.3f}")
-    torch.testing.assert_close(res.prefill_logits, plain_logits, **LOGITS_TOL)
-    # warm prefill of the same model and prompts, kernel vs plain attention
-    warm_ms = cuda_ms(lambda: res.model.prefill(res.prompts, s_buf), iters=3, warmup=1)
-    warm_plain_ms = cuda_ms(lambda: res.model.prefill(res.prompts, s_buf, attention=mha),
-                            iters=3, warmup=1)
-    prefill_ms, tok_s = res.prefill_s * 1e3, res.decode_tok_s
-    del res, plain_logits
-    torch.cuda.empty_cache()
+    # -- B: the serving paths ------------------------------------------------------
+    counters = {"flash_attention": fa.flash_attention, "rglru_scan": k2.rglru_scan_kernel,
+                "wkv6": k3.wkv6_kernel}
+    steps = 1 + ROUNDS * TOKENS          # the prefill and every decode step
+    bf16 = dict(param_dtype="bfloat16")
+    yi = dataclasses.replace(get_config("yi-34b"), n_layers=YI_LAYERS, **bf16)
+    rwkv = dataclasses.replace(get_config("rwkv6-3b"), **bf16)
+    rg = dataclasses.replace(get_config("recurrentgemma-9b"), **bf16)
+    runs = {
+        yi.name: serve_model(torch, yi, YI_BATCH, YI_PROMPT, counters, {
+            "flash_attention": YI_LAYERS, "rglru_scan": 0, "wkv6": 0}),
+        rwkv.name: serve_model(torch, rwkv, RWKV_BATCH, RWKV_PROMPT, counters, {
+            "flash_attention": 0, "rglru_scan": 0,
+            "wkv6": rwkv.layer_kinds.count("rwkv") * steps}),
+        rg.name: serve_model(torch, rg, RG_BATCH, RG_PROMPT, counters, {
+            "flash_attention": rg.layer_kinds.count("local"),
+            "rglru_scan": rg.layer_kinds.count("rec") * steps, "wkv6": 0}),
+    }
+    print(f"[B] passed in {time.perf_counter() - t_start:.1f} s since start")
 
-    # -- C: timings at the prefill shape -----------------------------------------
-    q, k, v = qkv(BATCH, PROMPT, H, KH, DH, torch.bfloat16, seed=7)
+    # -- C: timings at the serving shapes ----------------------------------------------
+    peak_name, (bf16_peak, fp32_peak, bw_peak) = peaks(kind)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rec = {}
+
+    # K1 at yi-34b's prefill shape
+    q, k, v = qkv(YI_BATCH, YI_PROMPT, H, KH, DH, torch.bfloat16, seed=7)
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), iters=10)
     plain_ms = cuda_ms(lambda: ops.attention_ref(q, k, v, causal=True), iters=3, warmup=1)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True),
-                         iters=10)
-    peak_name, (flops_peak, bw_peak) = peaks(kind)
-    pairs = PROMPT * (PROMPT + 1) // 2            # unmasked (q, k) pairs per head
-    flops = 4 * BATCH * H * DH * pairs
-    nbytes = 2 * (2 * BATCH * PROMPT * H * DH + 2 * BATCH * PROMPT * KH * DH)
-    t_ops, t_bytes = flops / flops_peak * 1e3, nbytes / bw_peak * 1e3
-    bound_ms = max(t_ops, t_bytes)
-    bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    shape = f"B={BATCH} S={PROMPT} H={H} K={KH} dh={DH} bf16 causal"
-    print(f"[C] flash_attention {shape}: {ms:.4f} ms/call ({flops / ms / 1e9:.1f} "
-          f"TFLOP/s) | card: {card}")
-    print(f"[C] bound {bound_ms:.4f} ms ({bound_by}; {flops / 1e9:.1f} GFLOP at "
-          f"{peak_name} {flops_peak / 1e12:.0f} TFLOP/s, {nbytes / 1e9:.3f} GB at "
-          f"{bw_peak / 1e12:.2f} TB/s) | card: {card}")
-    print(f"[C] plain attention_ref: {plain_ms:.4f} ms | library sdpa (yardstick, "
-          f"not used by the port): {library_ms:.4f} ms | card: {card}")
-    print(f"[C] serving yi-34b x{N_LAYERS} layers: prefill {prefill_ms:.3f} ms "
-          f"(batch {BATCH} x {PROMPT}, first call), decode {tok_s:.1f} tok/s "
-          f"(batch {BATCH}) | card: {card}")
-    print(f"[C] warm prefill yi-34b x{N_LAYERS} layers: {warm_ms:.3f} ms with the "
-          f"kernel, {warm_plain_ms:.3f} ms with plain attention (layers.mha) | card: {card}")
+    library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), iters=10)
+    pairs = YI_PROMPT * (YI_PROMPT + 1) // 2            # unmasked (q, k) pairs per head
+    flops = 4 * YI_BATCH * H * DH * pairs
+    nbytes = 2 * (2 * YI_BATCH * YI_PROMPT * H * DH + 2 * YI_BATCH * YI_PROMPT * KH * DH)
+    bound_ms, bound_by = bound(flops, nbytes, bf16_peak, bw_peak)
+    print(f"[C] K1 flash_attention B={YI_BATCH} S={YI_PROMPT} H={H} K={KH} dh={DH} bf16 causal: "
+          f"{ms:.4f} ms/call ({flops / ms / 1e9:.1f} TFLOP/s); bound {bound_ms:.4f} ms "
+          f"({bound_by}; {flops / 1e9:.1f} GFLOP at {peak_name} {bf16_peak / 1e12:.0f} TFLOP/s "
+          f"bf16, {nbytes / 1e9:.3f} GB at {bw_peak / 1e12:.2f} TB/s); plain {plain_ms:.4f} ms; "
+          f"library sdpa (yardstick, not used by the port) {library_ms:.4f} ms | card: {card}")
+    rec["flash_attention"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                  bound_by=bound_by, library_ms=library_ms)
+    del q, k, v, qt, kt, vt
+    free()
 
+    # K1 at recurrentgemma-9b's prefill shape (d_head 256, G 16, window 2048)
+    q, k, v = qkv(RG_BATCH, RG_PROMPT, RG_H, RG_KH, RG_DH, torch.bfloat16, seed=8)
+    rg_kw = dict(causal=True, window=RG_WINDOW)
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **rg_kw), iters=10)
+    plain_ms = cuda_ms(lambda: ops.attention_ref(q, k, v, **rg_kw), iters=2, warmup=1)
+    pos = torch.arange(RG_PROMPT, device="cuda")
+    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - RG_WINDOW)
+    qt = q.transpose(1, 2)
+    kt, vt = (t.transpose(1, 2).repeat_interleave(RG_H // RG_KH, dim=1) for t in (k, v))
+    library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=band), iters=10)
+    pairs = sum(min(i + 1, RG_WINDOW) for i in range(RG_PROMPT))
+    flops = 4 * RG_BATCH * RG_H * RG_DH * pairs
+    nbytes = 2 * (2 * RG_BATCH * RG_PROMPT * RG_H * RG_DH + 2 * RG_BATCH * RG_PROMPT * RG_KH * RG_DH)
+    b_ms, b_by = bound(flops, nbytes, bf16_peak, bw_peak)
+    print(f"[C] K1 flash_attention B={RG_BATCH} S={RG_PROMPT} H={RG_H} K={RG_KH} dh={RG_DH} bf16 "
+          f"window {RG_WINDOW}: {ms:.4f} ms/call ({flops / ms / 1e9:.1f} TFLOP/s); bound "
+          f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB); plain "
+          f"{plain_ms:.4f} ms; library sdpa with a band mask on K/V expanded to {RG_H} heads "
+          f"(yardstick) {library_ms:.4f} ms "
+          f"| card: {card}")
+    rec["flash_attention"]["at_dh256"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                              bound_by=b_by, library_ms=library_ms,
+                                              max_abs_err=k1_rg_err)
+    del q, k, v, qt, kt, vt, band
+    free()
+
+    # K3 at rwkv6-3b's prefill shape
+    args = wkv_inputs(RWKV_BATCH, RWKV_PROMPT, RWKV_H, RWKV_DH, torch.bfloat16, seed=9,
+                      with_s0=False)
+    ms = cuda_ms(lambda: k3.wkv6_kernel(*args), iters=10)
+    plain_ms = cuda_ms(lambda: ops.wkv6_ref(*args), iters=1, warmup=1)
+    BTH = RWKV_BATCH * RWKV_PROMPT * RWKV_H
+    flops = 5 * BTH * RWKV_DH * RWKV_DH
+    nbytes = (sum(t.numel() * t.element_size() for t in args[:5])   # r, k, v, logw, u
+              + BTH * RWKV_DH * 2                                      # y (bf16)
+              + RWKV_BATCH * RWKV_H * RWKV_DH * RWKV_DH * 4)           # s_final
+    b_ms, b_by = bound(flops, nbytes, fp32_peak, bw_peak)
+    print(f"[C] K3 wkv6 B={RWKV_BATCH} T={RWKV_PROMPT} H={RWKV_H} dh={RWKV_DH} bf16: "
+          f"{ms:.4f} ms/call ({flops / ms / 1e9:.2f} TFLOP/s fp32); bound {b_ms:.4f} ms "
+          f"({b_by}; {flops / 1e9:.2f} GFLOP at {fp32_peak / 1e12:.0f} TFLOP/s fp32, "
+          f"{nbytes / 1e9:.3f} GB at {bw_peak / 1e12:.2f} TB/s); plain {plain_ms:.4f} ms; "
+          f"library: no single PyTorch call | card: {card}")
+    rec["wkv6"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del args
+    free()
+
+    # K2 at recurrentgemma-9b's prefill shape
+    args = scan_inputs(RG_BATCH, RG_PROMPT, RG_W, seed=10, with_h0=False)
+    ms = cuda_ms(lambda: k2.rglru_scan_kernel(*args), iters=10)
+    plain_ms = cuda_ms(lambda: ops.rglru_scan_ref(*args), iters=1, warmup=1)
+    n = RG_BATCH * RG_PROMPT * RG_W
+    flops, nbytes = 2 * n, 3 * n * 4
+    b_ms, b_by = bound(flops, nbytes, fp32_peak, bw_peak)
+    print(f"[C] K2 rglru_scan B={RG_BATCH} S={RG_PROMPT} W={RG_W} f32: {ms:.4f} ms/call "
+          f"({nbytes / ms / 1e9:.3f} TB/s); bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e9:.3f} GB "
+          f"at {bw_peak / 1e12:.2f} TB/s); plain {plain_ms:.4f} ms; library: no single "
+          f"PyTorch call | card: {card}")
+    rec["rglru_scan"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=None)
+    del args
+    free()
+
+    for name, r in runs.items():
+        print(f"[C] serving {name}: prefill {r['prefill_ms']:.3f} ms (first call, host clock), "
+              f"warm prefill {r['warm_ms']:.3f} ms with the kernels, {r['plain_ms']:.3f} ms "
+              f"with the plain forms (CUDA events); decode {r['tok_s']:.1f} tok/s; peak "
+              f"memory {r['peak_gb']:.1f} GB | card: {card}")
+    print(f"[C] smoke ran {time.perf_counter() - t_start:.1f} s after the card check")
+
+    def launches(name):
+        return sum(r["launches"][name] for r in runs.values())
+
+    by_path = lambda name: {m: r["launches"][name] for m, r in runs.items() if r["launches"][name]}
+    kernels = [
+        dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+             replaces="src/repro/kernels/flash_attention.py:35",
+             launches=launches("flash_attention"), launches_by_path=by_path("flash_attention"),
+             max_abs_err=k1_err, **rec["flash_attention"]),
+        dict(name="rglru_scan", route="cuda", source="src/repro_torch/csrc/rglru_scan.cu",
+             replaces="src/repro/kernels/rglru_scan.py:27",
+             launches=launches("rglru_scan"), launches_by_path=by_path("rglru_scan"),
+             max_abs_err=k2_err, **rec["rglru_scan"]),
+        dict(name="wkv6", route="cuda", source="src/repro_torch/csrc/wkv6.cu",
+             replaces="src/repro/kernels/wkv6.py:27",
+             launches=launches("wkv6"), launches_by_path=by_path("wkv6"),
+             max_abs_err=k3_err, **rec["wkv6"]),
+    ]
     print(card)
-    print(json.dumps({"kernels": [{
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:35",
-        "launches": launches, "max_abs_err": max_err, "ms": ms,
-        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": library_ms}]}))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}))
     return 0

@@ -1,7 +1,7 @@
 """Architecture registry of the port: the architectures whose block kinds
 the torch model implements.  Mirrors ``get_config`` / ``reduced_config`` of
 the JAX package's registry; the other architectures land with the slices
-that port their block kinds (MoE, RG-LRU, RWKV-6, enc-dec, vision stub).
+that port their block kinds (dense variants, MoE, enc-dec, vision stub).
 """
 from __future__ import annotations
 
@@ -13,6 +13,8 @@ from repro_torch.models.config import ModelConfig
 
 ARCH_MODULES = {
     "yi-34b": "yi_34b",
+    "rwkv6-3b": "rwkv6_3b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 
@@ -46,5 +48,7 @@ def reduced_config(name: str, **overrides) -> ModelConfig:
         encoder_seq=24 if cfg.encoder_seq else 0,
         n_patches=8 if cfg.n_patches else 0,
     )
+    if cfg.name == "rwkv6-3b":
+        small.update(n_heads=1, n_kv_heads=1, d_model=64, d_head=64)
     small.update(overrides)
     return dataclasses.replace(cfg, **small)

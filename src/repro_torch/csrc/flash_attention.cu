@@ -7,15 +7,18 @@
 // accumulator), p rounded to v's type before the PV product, and rows whose
 // every key is masked giving 0.
 //
-// Design.  One CTA of 128 threads per (batch*head, 64-row q tile); the loop
+// Design.  One CTA of 128 threads per (batch*head, BQ-row q tile); the loop
 // over 64-key KV tiles runs inside the CTA, because CTAs run in no order
 // and nothing carries across them (the TPU kernel carried the running state
 // across its sequential "arbitrary" grid axis instead).  The q tile is held
 // scaled in fp32 in shared memory; K and then V of each tile are staged
 // through one shared buffer.  Thread (ty, tx) owns query rows ty + 8i
-// (i < 8): its 8x4 block of scores, the rows' running max and denominator,
-// and the 8 x dh/16 block of the output accumulator, so the softmax needs
-// only shuffles among the 16 lanes that share a row.  The KV head of query
+// (i < BQ/8): its (BQ/8)x4 block of scores, the rows' running max and
+// denominator, and the BQ/8 x dh/16 block of the output accumulator, so the
+// softmax needs only shuffles among the 16 lanes that share a row.  BQ is
+// 64, and 32 at dh = 256: there a 64-row tile would hold 8 x 16 = 128 fp32
+// accumulators per thread before the scores (spills) and ~150 KB of shared
+// memory; 32 rows halve both.  The KV head of query
 // head h is h / (H / KH) (GQA without copies: the wrapper passes strides).
 // KV tiles wholly above the diagonal or wholly outside the window are not
 // visited; ragged tails are masked, so any length works.
@@ -33,11 +36,12 @@
 
 namespace {
 
-constexpr int BQ = 64;        // query rows per CTA
 constexpr int BK = 64;        // keys per KV tile
 constexpr int NT = 128;       // threads per CTA: 8 row groups x 16 lanes
-constexpr int RPT = BQ / 8;   // query rows per thread
 constexpr int KPT = BK / 16;  // keys per thread in the score block
+
+// query rows per CTA for head size DH
+template <int DH> struct QRows { static constexpr int value = DH >= 256 ? 32 : 64; };
 constexpr float NEG_INF = -1e30f;
 
 struct Params {
@@ -80,6 +84,8 @@ __global__ void __launch_bounds__(NT) flash_fwd(const Params p) {
   constexpr int LD = DH + 4;   // fp32 row stride of the q / kv tiles (16 B aligned)
   constexpr int LP = BK + 4;   // fp32 row stride of the p tile
   constexpr int CPT = DH / 16; // output columns per thread
+  constexpr int BQ = QRows<DH>::value;
+  constexpr int RPT = BQ / 8;  // query rows per thread
   extern __shared__ float4 smem4[];
   float* Qs = reinterpret_cast<float*>(smem4);
   float* KVs = Qs + BQ * LD;
@@ -227,6 +233,7 @@ __global__ void __launch_bounds__(NT) flash_fwd(const Params p) {
 template <typename T, int DH>
 cudaError_t launch(const Params& p, cudaStream_t stream) {
   constexpr int LD = DH + 4;
+  constexpr int BQ = QRows<DH>::value;
   const int smem = (BQ * LD + BK * LD + BQ * (BK + 4)) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -243,6 +250,7 @@ cudaError_t dispatch_dh(const Params& p, int dh, cudaStream_t stream) {
     case 32: return launch<T, 32>(p, stream);
     case 64: return launch<T, 64>(p, stream);
     case 128: return launch<T, 128>(p, stream);
+    case 256: return launch<T, 256>(p, stream);
     default: return cudaErrorInvalidValue;
   }
 }

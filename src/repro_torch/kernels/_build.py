@@ -4,8 +4,8 @@ Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled with
 ``nvcc`` for ``sm_90a`` into a shared library under ``kernels/_build/``
 (git-ignored), named by the hash of its source, so an edited source is
 rebuilt and an unchanged one is loaded as it is.  Nothing is compiled when
-a module is imported: the first CUDA launch calls :func:`load`, and
-``build`` can compile several sources at once (one ``nvcc`` each, started
+a module is imported: the first CUDA launch calls :func:`load`, which
+builds every source of ``csrc/`` at once (one ``nvcc`` each, started
 together).  ``ptxas`` reports each kernel's registers, shared memory and
 spills into ``_build/<name>.log``.
 """
@@ -22,6 +22,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
+
+SOURCES = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -76,5 +78,6 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
 
 @functools.cache
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
-    return ctypes.CDLL(str(build([name])[name]))
+    """The loaded library for ``csrc/<name>.cu``; the first call builds
+    every source that has no up-to-date library."""
+    return ctypes.CDLL(str(build(SOURCES)[name]))

@@ -21,7 +21,7 @@ import torch
 from . import _build
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
-SUPPORTED_HEAD_DIMS = (16, 32, 64, 128)
+SUPPORTED_HEAD_DIMS = (16, 32, 64, 128, 256)
 MAX_GRID_Y = 65535
 
 _P = ctypes.c_void_p
@@ -41,10 +41,15 @@ def _kernel():
     return fn
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.device.type != "cuda":
+def _check_cuda(**tensors: torch.Tensor) -> None:
+    for name, t in tensors.items():
+        if t is not None and t.device.type != "cuda":
             raise ValueError(f"{name} is on {t.device}; the kernel takes CUDA tensors")
+
+
+def check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Raise unless the kernel takes these tensors (device aside)."""
+    for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype not in SUPPORTED_DTYPES:
             raise TypeError(f"{name} has dtype {t.dtype}; supported: {SUPPORTED_DTYPES}")
         if t.dim() != 4:
@@ -74,7 +79,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     scale: Optional[float] = None) -> torch.Tensor:
     """Attention on the card.  q: (B, Sq, H, dh); k, v: (B, Sk, K, dh).
     Returns (B, Sq, H, dh) in q's dtype."""
-    _check(q, k, v)
+    _check_cuda(q=q, k=k, v=v)
+    check_inputs(q, k, v)
     B, Sq, H, dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
     scale = (1.0 / math.sqrt(dh)) if scale is None else scale

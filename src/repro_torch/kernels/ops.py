@@ -6,12 +6,15 @@ fallback from the kernel to the plain version.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
+from . import ref
 from .flash_attention import flash_attention
-from .ref import flash_attention_ref
+from .ref import flash_attention_ref, rglru_scan_ref
+from .rglru_scan import rglru_scan_kernel
+from .wkv6 import wkv6_kernel
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -43,3 +46,52 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return attention_ref(q, k, v, causal=causal, window=window,
                              softcap=softcap, scale=scale)
     raise ValueError(f"no attention kernel for device {q.device}")
+
+
+def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             logw: torch.Tensor, u: torch.Tensor,
+             s0: Optional[torch.Tensor] = None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`wkv6`: heads merged into the batch,
+    :func:`ref.wkv6_ref`, heads split again."""
+    B, T, H, dh = r.shape
+
+    def merge(x):
+        return x.transpose(1, 2).reshape(B * H, T, dh)
+
+    u_m = u[None].expand(B, H, dh).reshape(B * H, dh)
+    s0_m = None if s0 is None else s0.reshape(B * H, dh, dh)
+    y, s = ref.wkv6_ref(merge(r), merge(k), merge(v), merge(logw), u_m, s0_m)
+    return y.reshape(B, H, T, dh).transpose(1, 2), s.reshape(B, H, dh, dh)
+
+
+def wkv6_kernel_args(r, k, v, logw, u, s0=None):
+    """What :func:`wkv6` hands the kernel: the small u (a parameter, bf16 in
+    a bf16 model) and the state in fp32."""
+    return (r, k, v, logw.float(), u.float().contiguous(),
+            None if s0 is None else s0.float())
+
+
+def wkv6(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         logw: torch.Tensor, u: torch.Tensor,
+         s0: Optional[torch.Tensor] = None
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """RWKV6 recurrence.  r/k/v/logw: (B, T, H, dh); u: (H, dh); s0:
+    optional (B, H, dh, dh) initial state.  Returns (y: (B, T, H, dh) in
+    r's dtype, s_final: (B, H, dh, dh) fp32)."""
+    if r.device.type == "cuda":
+        return wkv6_kernel(*wkv6_kernel_args(r, k, v, logw, u, s0))
+    if r.device.type == "cpu":
+        return wkv6_ref(r, k, v, logw, u, s0)
+    raise ValueError(f"no wkv6 kernel for device {r.device}")
+
+
+def rglru_scan(a: torch.Tensor, b: torch.Tensor,
+               h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Linear recurrence h_t = a_t h_{t-1} + b_t.  a, b: (B, S, W) fp32;
+    h0: optional (B, W).  Returns h: (B, S, W) fp32."""
+    if a.device.type == "cuda":
+        return rglru_scan_kernel(a, b, None if h0 is None else h0.float())
+    if a.device.type == "cpu":
+        return rglru_scan_ref(a, b, h0)
+    raise ValueError(f"no rglru_scan kernel for device {a.device}")

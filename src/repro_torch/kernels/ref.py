@@ -35,3 +35,33 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     s = torch.where(mask[None], s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bqs,bsd->bqd", p, v.float()).to(q.dtype)
+
+
+def rglru_scan_ref(a: torch.Tensor, b: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """h_t = a_t h_{t-1} + b_t, sequential scan.  a, b: (B, S, W)."""
+    B, S, W = a.shape
+    h = a.new_zeros((B, W)) if h0 is None else h0
+    hs = []
+    for t in range(S):
+        h = a[:, t] * h + b[:, t]
+        hs.append(h)
+    return torch.stack(hs, dim=1)
+
+
+def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             logw: torch.Tensor, u: torch.Tensor,
+             s0: Optional[torch.Tensor] = None):
+    """Sequential WKV6 over merged (BH, T, dh) tensors; u: (BH, dh).
+    Returns (y (BH, T, dh) in r's dtype, s_final (BH, dh, dh) fp32)."""
+    BH, T, dh = r.shape
+    f32 = torch.float32
+    s = r.new_zeros((BH, dh, dh), dtype=f32) if s0 is None else s0.to(f32)
+    uf = u.to(f32)[:, :, None]
+    ys = []
+    for t in range(T):
+        r_t, k_t, v_t, lw_t = (a[:, t].to(f32) for a in (r, k, v, logw))
+        kv = torch.einsum("bd,be->bde", k_t, v_t)
+        ys.append(torch.einsum("bd,bde->be", r_t, s + uf * kv))
+        s = torch.exp(lw_t)[..., None] * s + kv
+    return torch.stack(ys, dim=1).to(r.dtype), s

@@ -1,13 +1,16 @@
 """Batched serving on the port: prefill + decode rounds with streaming
 analysis and window-adaptive policies.
 
-    PYTHONPATH=src python -m repro_torch.launch.serve [--arch yi-34b] \
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        [--arch yi-34b|rwkv6-3b|recurrentgemma-9b] \
         [--tokens 8] [--rounds 3] [--schema paper|tpu] [--policies all] \
         [--device cuda|cpu] [--full-width] [--n-layers N]
 
 Counterpart of ``examples/serve.py``.  It prefills a batch of prompts
-(attention through the Hopper flash-attention kernel on the card), then
-decodes ``--tokens`` tokens per request per round.  Each round is one
+(on the card: attention through the Hopper flash-attention kernel, the
+RWKV-6 and RG-LRU recurrences through their Hopper kernels, which also
+carry the recurrent state of every decode step), then decodes ``--tokens``
+tokens per request per round.  Each round is one
 collection window: the recorder is frozen and handed to an
 ``AsyncAnalysisSession`` (``--sync-analysis`` analyzes inline), and the
 report shows the per-window timeline of the regions prefill / decode /
@@ -29,7 +32,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.configs import get_config, reduced_config
+from repro_torch.configs import get_config, list_archs, reduced_config
 from repro_torch.core import (AnalysisSession, AsyncAnalysisSession,
                               PolicyEngine, RegionTree, SessionReport,
                               make_policies)
@@ -176,7 +179,7 @@ def build_config(arch: str, full_width: bool,
 
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="yi-34b")
+    ap.add_argument("--arch", default="yi-34b", choices=list_archs())
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--tokens", type=int, default=8,

@@ -1,6 +1,6 @@
 """Layer primitives of the dense decoder (PyTorch).
 
-Counterpart of ``repro/models/layers.py`` for the ``"global"`` block:
+Counterpart of ``repro/models/layers.py`` for the attention blocks:
 parameters live in small ``nn.Module`` containers whose attribute names
 are the JAX parameter keys (``wq.w``, ``ln1.scale``, ``embed.table``), and
 linear weights keep the JAX layout ``(d_in, d_out)`` so weights carry
@@ -46,6 +46,18 @@ def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # Parameter containers (init: see models.model.init_params)
 # ---------------------------------------------------------------------------
+
+def raw_params(module: nn.Module, specs: Dict[str, Tuple[Tuple[int, ...], str, float]],
+               dtype: torch.dtype, device) -> None:
+    """Register plain parameters on ``module``, each ``name: (shape, init,
+    scale)`` as the reference's ``ParamSpec`` (init ``normal`` draws normal
+    x scale; ``zeros``, ``ones``); ``models.model.init_params`` reads the
+    rules back from ``module.init_rules``."""
+    module.init_rules = {}
+    for name, (shape, init, scale) in specs.items():
+        setattr(module, name, _param(shape, dtype, device))
+        module.init_rules[name] = (init, scale)
+
 
 class Linear(nn.Module):
     def __init__(self, d_in: int, d_out: int, *, bias: bool = False,
@@ -131,6 +143,19 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
                      dim=-1).to(x.dtype)
 
 
+def sinusoidal(seq: int, d: int, offset: int = 0, device=None) -> torch.Tensor:
+    """(seq, d) fp32 absolute positions ``offset .. offset + seq - 1``:
+    sin of the first half of the channels, cos of the second."""
+    pos = torch.arange(offset, offset + seq, dtype=torch.float32,
+                       device=device)[:, None]
+    half = d // 2
+    freqs = torch.exp(-math.log(10_000.0)
+                      * torch.arange(half, dtype=torch.float32, device=device)
+                      / max(half - 1, 1))
+    ang = pos * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # Attention (plain; the kernel path is kernels.ops.attention)
 # ---------------------------------------------------------------------------
@@ -206,11 +231,14 @@ def mha_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attention_decode(p: Attention, x: torch.Tensor,
-                     cache: Dict[str, torch.Tensor], cfg, *,
-                     pos: int) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One-token attention against a full-length cache {"k","v"}:
-    (B, S_buf, K, dh).  The new key/value are written into the cache in
-    place at slot ``pos`` (the reference returns an updated copy)."""
+                     cache: Dict[str, torch.Tensor], cfg, *, pos: int,
+                     window: int = 0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token attention against the cache {"k","v"}: (B, S_buf, K, dh).
+
+    For windowed layers the cache is a ring buffer and the write slot is
+    ``pos % S_buf``; otherwise it is a full-length buffer written at slot
+    ``pos``.  The new key/value are written into the cache in place (the
+    reference returns an updated copy)."""
     B, S, _ = x.shape
     if S != 1:
         raise ValueError(f"decode takes one token per request, got {S}")
@@ -223,9 +251,12 @@ def attention_decode(p: Attention, x: torch.Tensor,
         q = rope(q, positions, cfg.rope_theta)
         k_new = rope(k_new, positions, cfg.rope_theta)
     kc, vc = cache["k"], cache["v"]
-    kc[:, pos] = k_new[:, 0].to(kc.dtype)
-    vc[:, pos] = v_new[:, 0].to(vc.dtype)
-    out = mha_decode(q, kc, vc, k_len=pos + 1, softcap=cfg.attn_softcap,
+    s_buf = kc.shape[1]
+    slot = pos % s_buf if window else pos
+    kc[:, slot] = k_new[:, 0].to(kc.dtype)
+    vc[:, slot] = v_new[:, 0].to(vc.dtype)
+    k_len = min(pos + 1, s_buf) if window else pos + 1
+    out = mha_decode(q, kc, vc, k_len=k_len, softcap=cfg.attn_softcap,
                      scale=cfg.query_scale)
     y = apply_linear(p.wo, out.reshape(B, 1, H * dh))
     return y, cache
@@ -235,11 +266,24 @@ def attention_decode(p: Attention, x: torch.Tensor,
 # MLP / embedding / logits
 # ---------------------------------------------------------------------------
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` op by op: x * sigmoid(x), each rounded to x's dtype
+    (torch's fused silu rounds bf16 once and differs in the last bit)."""
+    return x * torch.sigmoid(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (tanh approximation) op by op in x's dtype, so that
+    bf16 rounds where the reference rounds."""
+    inner = _scalar(math.sqrt(2.0 / math.pi), x) * (x + _scalar(0.044715, x) * (x * x * x))
+    return x * (_scalar(0.5, x) * (1.0 + torch.tanh(inner)))
+
+
 def _act(x: torch.Tensor, kind: str) -> torch.Tensor:
     if kind.startswith("silu"):
-        return F.silu(x)
+        return silu(x)
     if kind.startswith("gelu"):
-        return F.gelu(x, approximate="tanh")
+        return gelu(x)
     if kind == "sq_relu":
         r = F.relu(x)
         return r * r

@@ -1,0 +1,214 @@
+"""RWKV-6 "Finch" block (Peng et al., arXiv:2404.05892), PyTorch.
+
+Counterpart of ``repro/models/rwkv6.py``.  Time-mix with data-dependent
+decay, per head h and channel c:
+    S_t = diag(w_t) S_{t-1} + k_t^T v_t
+    y_t = r_t (S_{t-1} + diag(u) k_t^T v_t)
+with w_t = exp(-exp(w0 + lora_w(x~_t))), token-shift data-dependent lerps
+for r/k/v/w/g, a per-head groupnorm on y, and a squared-ReLU channel-mix
+FFN.
+
+``apply_time_mix`` runs the recurrence through ``kernels.ops.wkv6`` (the
+Hopper kernel K3 on the card, its plain sequential version on the CPU) for
+prefill and for decode, where the reference's prefill takes the chunked
+matmul form.  ``wkv6_sequential`` and ``wkv6_chunked`` are the reference's
+two plain forms, kept for the comparisons.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..kernels import ops
+from .layers import Linear, _scalar, apply_linear, raw_params, silu
+
+LORA_DIM = 32
+MIXES = ("r", "k", "v", "w", "g")
+
+WkvFn = Callable[..., tuple]
+
+
+def rwkv6_head_dim(cfg) -> int:
+    return 64 if cfg.d_model % 64 == 0 else cfg.d_model // cfg.n_heads
+
+
+class TimeMix(nn.Module):
+    """Every key of the reference's ``rwkv6_spec`` under its name (the
+    channel mix's weights included, as there)."""
+
+    def __init__(self, cfg, dtype=torch.float32, device="cpu"):
+        super().__init__()
+        d = cfg.d_model
+        dh = rwkv6_head_dim(cfg)
+        H = d // dh
+        sc = 1.0 / math.sqrt(d)
+        raw_params(self, {
+            "mu": ((len(MIXES), d), "normal", 0.5),
+            "mix_lora_a": ((d, len(MIXES) * LORA_DIM), "normal", sc),
+            "mix_lora_b": ((len(MIXES), LORA_DIM, d), "normal", 0.01),
+            "w0": ((d,), "zeros", 0.0),
+            "w_lora_a": ((d, LORA_DIM * 2), "normal", sc),
+            "w_lora_b": ((LORA_DIM * 2, d), "normal", 0.01),
+            "u": ((H, dh), "normal", 0.5),
+            "ln_scale": ((d,), "ones", 0.0),
+            "mu_ck": ((d,), "normal", 0.5),
+            "mu_cr": ((d,), "normal", 0.5),
+        }, dtype, device)
+        kw = dict(dtype=dtype, device=device)
+        for name in ("wr", "wk", "wv", "wg", "wo", "cr"):
+            setattr(self, name, Linear(d, d, **kw))
+        self.ck = Linear(d, cfg.d_ff, **kw)
+        self.cv = Linear(cfg.d_ff, d, **kw)
+
+
+def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]) -> torch.Tensor:
+    """Previous-token stream: shift right by one along S; position 0 takes
+    ``prev`` (decode carry) or zeros."""
+    first = torch.zeros_like(x[:, :1]) if prev is None else prev[:, None].to(x.dtype)
+    return torch.cat([first, x[:, :-1]], dim=1)
+
+
+def _ddlerp(p: TimeMix, x: torch.Tensor, xx: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Data-dependent token-shift mix for the five streams (RWKV6 ddlerp)."""
+    base = x + (xx - x) * _scalar(0.5, x)
+    lora = torch.einsum("bsd,dk->bsk", base, p.mix_lora_a.to(x.dtype))
+    lora = torch.tanh(lora.reshape(*x.shape[:2], len(MIXES), LORA_DIM))
+    delta = torch.einsum("bsmk,mkd->bsmd", lora, p.mix_lora_b.to(x.dtype))
+    return {name: x + (xx - x) * (p.mu[m].to(x.dtype) + delta[:, :, m])
+            for m, name in enumerate(MIXES)}
+
+
+def _decay(p: TimeMix, xw: torch.Tensor) -> torch.Tensor:
+    """log w_t (negative): -exp(w0 + lora(xw)); per channel, fp32.  The clip
+    to [-8, 0.2] keeps the reference's chunkwise form inside fp32 range."""
+    a = torch.tanh(torch.einsum("bsd,dk->bsk", xw, p.w_lora_a.to(xw.dtype)))
+    dd = torch.einsum("bsk,kd->bsd", a, p.w_lora_b.to(xw.dtype))
+    return -torch.exp(torch.clamp(p.w0.float() + dd.float(), -8.0, 0.2))
+
+
+def wkv6_chunked(r, k, v, logw, u, state=None, chunk: int = 64):
+    """Chunkwise-parallel WKV6, as the reference's prefill: r/k/v streamed
+    in bf16 (unless float64), each chunk in fp32, the state across chunks.
+    r, k, v, logw: (B, T, H, dh); u: (H, dh); state: optional (B, H, dh,
+    dh).  Returns (y, final_state)."""
+    B, T, H, dh = r.shape
+    n = -(-T // chunk)
+    pad = n * chunk - T
+    out_dtype = r.dtype
+    if pad:
+        r, k, v, logw = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (r, k, v, logw))
+    f32 = torch.float32
+    stream_dt = torch.bfloat16 if r.dtype != torch.float64 else r.dtype
+
+    def chunks(a, dt):
+        return a.reshape(B, n, chunk, H, dh).to(dt).unbind(1)
+
+    mask = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                 device=r.device), diagonal=-1)
+    uf = u.to(f32)
+    s = r.new_zeros((B, H, dh, dh), dtype=f32) if state is None else state.to(f32)
+    ys = []
+    for r_c, k_c, v_c, lw_c in zip(chunks(r, stream_dt), chunks(k, stream_dt),
+                                   chunks(v, stream_dt), chunks(logw, f32)):
+        r_c, k_c, v_c, lw_c = (a.to(f32) for a in (r_c, k_c, v_c, lw_c))
+        cum = torch.cumsum(lw_c, dim=1)
+        cum_prev = cum - lw_c
+        total = cum[:, -1]
+        q_tilde = r_c * torch.exp(cum_prev)
+        k_tilde = k_c * torch.exp(-cum)
+        scores = torch.einsum("bthd,bshd->bhts", q_tilde, k_tilde)
+        scores = torch.where(mask[None, None], scores, torch.zeros_like(scores))
+        y = torch.einsum("bhts,bshd->bthd", scores, v_c)
+        bonus = torch.einsum("bthd,hd->bth", r_c * k_c, uf)
+        y = y + bonus[..., None] * v_c
+        y = y + torch.einsum("bthd,bhde->bthe", q_tilde, s)
+        k_dec = k_c * torch.exp(total[:, None] - cum)
+        s = s * torch.exp(total)[..., None] + torch.einsum("bthd,bthe->bhde",
+                                                           k_dec, v_c)
+        ys.append(y.to(out_dtype))
+    return torch.cat(ys, dim=1)[:, :T], s
+
+
+def wkv6_sequential(r, k, v, logw, u, state=None):
+    """Token-by-token recurrence (the reference's oracle and decode form).
+    Same signature as ``wkv6_chunked``."""
+    B, T, H, dh = r.shape
+    f32 = torch.float32
+    s = r.new_zeros((B, H, dh, dh), dtype=f32) if state is None else state.to(f32)
+    uf = u.to(f32)[None, :, :, None]
+    ys = []
+    for t in range(T):
+        r_t, k_t, v_t, lw_t = (a[:, t].to(f32) for a in (r, k, v, logw))
+        kv = torch.einsum("bhd,bhe->bhde", k_t, v_t)
+        ys.append(torch.einsum("bhd,bhde->bhe", r_t, s + uf * kv))
+        s = torch.exp(lw_t)[..., None] * s + kv
+    return torch.stack(ys, dim=1).to(r.dtype), s
+
+
+def _group_norm(x: torch.Tensor, scale: torch.Tensor, H: int,
+                eps: float = 64e-5) -> torch.Tensor:
+    """Per-head groupnorm on (B, T, d) with d = H * dh (RWKV6 ln_x)."""
+    B, T, d = x.shape
+    xh = x.reshape(B, T, H, d // H).float()
+    mu = torch.mean(xh, dim=-1, keepdim=True)
+    var = torch.var(xh, dim=-1, keepdim=True, unbiased=False)
+    y = (xh - mu) * torch.rsqrt(var + eps)
+    return (y.reshape(B, T, d) * scale.float()).to(x.dtype)
+
+
+def apply_time_mix(p: TimeMix, x: torch.Tensor, cfg,
+                   state: Optional[Dict[str, torch.Tensor]] = None,
+                   return_state: bool = False, wkv: WkvFn = ops.wkv6):
+    """RWKV6 attention-free time-mix.  x: (B, S, d).
+
+    state (decode): {"shift": (B, d), "wkv": (B, H, dh, dh)}.  ``wkv`` is
+    the recurrence: ``kernels.ops.wkv6`` on the serving path, a plain form
+    (``wkv6_sequential``) for comparisons."""
+    B, S, d = x.shape
+    dh = rwkv6_head_dim(cfg)
+    H = d // dh
+    prev = state["shift"] if state is not None else None
+    xx = _token_shift(x, prev)
+    mixed = _ddlerp(p, x, xx)
+    r = apply_linear(p.wr, mixed["r"]).reshape(B, S, H, dh)
+    k = apply_linear(p.wk, mixed["k"]).reshape(B, S, H, dh)
+    v = apply_linear(p.wv, mixed["v"]).reshape(B, S, H, dh)
+    g = apply_linear(p.wg, mixed["g"])
+    logw = _decay(p, mixed["w"]).reshape(B, S, H, dh)
+    s0 = state["wkv"] if state is not None else None
+    y, s_final = wkv(r, k, v, logw, p.u, s0)
+    y = _group_norm(y.reshape(B, S, d), p.ln_scale, H)
+    out = apply_linear(p.wo, y * silu(g))
+    if return_state:
+        return out, {"shift": x[:, -1].float().contiguous(), "wkv": s_final}
+    return out
+
+
+def apply_channel_mix(p: TimeMix, x: torch.Tensor, cfg,
+                      state: Optional[Dict[str, torch.Tensor]] = None,
+                      return_state: bool = False):
+    """RWKV6 channel-mix (squared-ReLU FFN with receptance gate)."""
+    prev = state["shift"] if state is not None else None
+    xx = _token_shift(x, prev)
+    xk = x + (xx - x) * p.mu_ck.to(x.dtype)
+    xr = x + (xx - x) * p.mu_cr.to(x.dtype)
+    kk = F.relu(apply_linear(p.ck, xk))
+    vv = apply_linear(p.cv, kk * kk)
+    out = torch.sigmoid(apply_linear(p.cr, xr)) * vv
+    if return_state:
+        return out, {"shift": x[:, -1].float().contiguous()}
+    return out
+
+
+def init_rwkv6_state(cfg, batch: int, device="cpu") -> Dict[str, torch.Tensor]:
+    d = cfg.d_model
+    dh = rwkv6_head_dim(cfg)
+    H = d // dh
+    f32 = torch.float32
+    return {"tm_shift": torch.zeros((batch, d), dtype=f32, device=device),
+            "wkv": torch.zeros((batch, H, dh, dh), dtype=f32, device=device),
+            "cm_shift": torch.zeros((batch, d), dtype=f32, device=device)}

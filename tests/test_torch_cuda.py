@@ -11,6 +11,8 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import rglru_scan as k2  # noqa: E402
+from repro_torch.kernels import wkv6 as k3  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -51,3 +53,70 @@ def test_wrapper_rejects_noncontiguous(card):
     q = torch.zeros(1, 16, 4, 32, device=card).transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=True, window=40)],
+                         ids=["causal", "window"])
+def test_flash_attention_dh256_gqa16_matches_plain(card, kw, dtype):
+    """recurrentgemma's local-attention heads: dh 256, 16 query heads on one
+    KV head, a window, a ragged length."""
+    g = torch.Generator(device=card).manual_seed(256)
+    B, S = 2, 150
+    q = torch.randn((B, S, 16, 256), generator=g, device=card).to(dtype)
+    k, v = (torch.randn((B, S, 1, 256), generator=g, device=card).to(dtype) for _ in range(2))
+    before = fa.flash_attention.launches
+    got = ops.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == before + 1
+    want = ops.attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def _wkv_inputs(card, B, T, H, dh, dtype, seed):
+    g = torch.Generator(device=card).manual_seed(seed)
+    r, k, v = (0.5 * torch.randn((B, T, H, dh), generator=g, device=card) for _ in range(3))
+    logw = -torch.exp(torch.clamp(0.5 * torch.randn((B, T, H, dh), generator=g, device=card),
+                                  -3, 0.5))
+    u = 0.3 * torch.randn((H, dh), generator=g, device=card)
+    s0 = torch.randn((B, H, dh, dh), generator=g, device=card)
+    return r.to(dtype), k.to(dtype), v.to(dtype), logw, u, s0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,H,dh,with_s0", [(2, 64, 3, 64, False), (1, 37, 2, 32, True),
+                                              (3, 1, 4, 64, True), (2, 100, 2, 64, True)])
+def test_wkv6_matches_plain(card, B, T, H, dh, with_s0, dtype):
+    r, k, v, logw, u, s0 = _wkv_inputs(card, B, T, H, dh, dtype, seed=T)
+    s0 = s0 if with_s0 else None
+    before = k3.wkv6_kernel.launches
+    y, s = ops.wkv6(r, k, v, logw, u, s0)
+    torch.cuda.synchronize()
+    assert k3.wkv6_kernel.launches == before + 1
+    assert y.dtype == dtype and s.dtype == torch.float32
+    y_want, s_want = ops.wkv6_ref(r, k, v, logw, u, s0)
+    torch.testing.assert_close(y.float(), y_want.float(), **TOL[dtype])
+    torch.testing.assert_close(s, s_want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,S,W,with_h0", [(2, 64, 128, False), (3, 37, 100, True),
+                                           (2, 1, 4096, True), (1, 300, 64, True)])
+def test_rglru_scan_matches_plain(card, B, S, W, with_h0):
+    g = torch.Generator(device=card).manual_seed(S)
+    a = torch.rand((B, S, W), generator=g, device=card) * 0.79 + 0.2
+    b = torch.randn((B, S, W), generator=g, device=card)
+    h0 = torch.randn((B, W), generator=g, device=card) if with_h0 else None
+    before = k2.rglru_scan_kernel.launches
+    got = ops.rglru_scan(a, b, h0)
+    torch.cuda.synchronize()
+    assert k2.rglru_scan_kernel.launches == before + 1
+    torch.testing.assert_close(got, ops.rglru_scan_ref(a, b, h0), **TOL[torch.float32])
+
+
+def test_recurrence_wrappers_reject_bad_inputs(card):
+    a = torch.zeros(1, 4, 8, device=card)
+    with pytest.raises(TypeError, match="float32"):
+        k2.rglru_scan_kernel(a.bfloat16(), a.bfloat16())
+    r = torch.zeros(1, 4, 2, 48, device=card)
+    with pytest.raises(ValueError, match="head dim"):
+        k3.wkv6_kernel(r, r, r, r, torch.zeros(2, 48, device=card))

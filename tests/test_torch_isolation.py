@@ -37,7 +37,10 @@ def test_import_loads_no_jax_and_no_reference():
                          capture_output=True, text=True, timeout=300)
     got = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch.launch.serve" in got["modules"]
-    assert "repro_torch.kernels.flash_attention" in got["modules"]
+    for name in ("flash_attention", "rglru_scan", "wkv6"):
+        assert f"repro_torch.kernels.{name}" in got["modules"]
+    assert "repro_torch.models.rwkv6" in got["modules"]
+    assert "repro_torch.models.rglru" in got["modules"]
     assert [m for m in got["loaded"] if _foreign(m)] == []
 
 

@@ -162,7 +162,7 @@ def test_init_cache_shapes():
 
 
 def test_unported_block_kind_raises():
-    cfg = dataclasses.replace(reduced_config("yi-34b"), block_pattern=("local", "global"))
+    cfg = dataclasses.replace(reduced_config("yi-34b"), block_pattern=("moe_global", "global"))
     with pytest.raises(NotImplementedError, match="not ported"):
         init_params(cfg, 0)
 

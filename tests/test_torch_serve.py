@@ -1,8 +1,8 @@
 """The port's serving entry point on the CPU: ``python -m
-repro_torch.launch.serve --device cpu`` runs the reduced yi-34b through
-prefill and decode rounds with one analysis window per round, and the
-default device (the card) raises where there is none instead of falling
-back to the host."""
+repro_torch.launch.serve --device cpu`` runs the reduced yi-34b, rwkv6-3b
+and recurrentgemma-9b through prefill and decode rounds with one analysis
+window per round, and the default device (the card) raises where there is
+none instead of falling back to the host."""
 import os
 import subprocess
 import sys
@@ -14,7 +14,13 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.configs import reduced_config  # noqa: E402
+from repro_torch.kernels import flash_attention as k1  # noqa: E402
+from repro_torch.kernels import ops  # noqa: E402
+from repro_torch.kernels import rglru_scan as k2  # noqa: E402
+from repro_torch.kernels import wkv6 as k3  # noqa: E402
 from repro_torch.launch.serve import build_config, serve  # noqa: E402
+from repro_torch.models import init_params  # noqa: E402
+from repro_torch.models.transformer import Kernels  # noqa: E402
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -34,6 +40,25 @@ def test_cli_cpu_prints_three_window_timeline():
         assert f"[round {rnd}] internal bottlenecks:" in out.stdout
     assert "timeline:" in out.stdout
     assert "tok/s (host CPU)" in out.stdout
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b"])
+def test_cli_cpu_recurrent_archs(arch):
+    """The two recurrent families at reduced size on the host: one analysis
+    window per round."""
+    out = _run("--arch", arch, "--device", "cpu", "--batch", "2", "--prompt-len", "20",
+               "--tokens", "2", "--rounds", "2")
+    assert out.returncode == 0, out.stderr
+    assert "=== analysis session: 2 window(s) ===" in out.stdout
+    assert f"[serve] {arch} (d_model=64" in out.stdout
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b"])
+def test_cli_recurrent_archs_without_card_raise(arch):
+    out = _run("--arch", arch, "--tokens", "1", "--rounds", "1",
+               env_extra={"CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert "torch.cuda.is_available() is False" in out.stderr
 
 
 def test_cli_without_card_raises_instead_of_falling_back():
@@ -64,5 +89,51 @@ def test_build_config_widths():
     assert build_config("yi-34b", False, None) == reduced_config("yi-34b")
     full = build_config("yi-34b", True, 12)
     assert (full.d_model, full.n_heads, full.n_kv_heads, full.n_layers) == (7168, 56, 8, 12)
+    for arch, widths in (("rwkv6-3b", (2560, 40, 40, 32)),
+                         ("recurrentgemma-9b", (4096, 16, 1, 38))):
+        assert build_config(arch, False, None) == reduced_config(arch)
+        full = build_config(arch, True, None)
+        assert (full.d_model, full.n_heads, full.n_kv_heads, full.n_layers) == widths
     with pytest.raises(KeyError, match="not ported"):
-        build_config("rwkv6-3b", False, None)
+        build_config("mixtral-8x7b", False, None)
+
+
+@pytest.mark.parametrize("arch", ["yi-34b", "rwkv6-3b", "recurrentgemma-9b"])
+def test_serving_path_feeds_kernels_what_they_take(arch):
+    """The serving path's calls of K1, K2 and K3, rehearsed on the host: each
+    call's arguments (as ``kernels.ops`` hands them to the kernel) pass the
+    kernel wrapper's own checks of dtype, shape and contiguity, and each
+    kernel is called once per layer of its kind per prefill and per decode
+    step, as ``chip_smoke.py`` counts launches on the card."""
+    calls = {"attention": 0, "wkv6": 0, "rglru_scan": 0}
+
+    def attention(q, k, v, **kw):
+        k1.check_inputs(q, k, v)
+        calls["attention"] += 1
+        return ops.attention(q, k, v, **kw)
+
+    def wkv6(*args):
+        k3.check_inputs(*ops.wkv6_kernel_args(*args))
+        calls["wkv6"] += 1
+        return ops.wkv6(*args)
+
+    def rglru_scan(a, b, h0=None):
+        k2.check_inputs(a, b, None if h0 is None else h0.float())
+        calls["rglru_scan"] += 1
+        return ops.rglru_scan(a, b, h0)
+
+    kernels = Kernels(attention, wkv6, rglru_scan)
+    cfg = reduced_config(arch, param_dtype="bfloat16")
+    model = init_params(cfg, 0)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 20)))
+    steps = 2
+    logits, cache = model.prefill(tokens, 20 + steps, kernels=kernels)
+    for step in range(steps):
+        logits, cache = model.decode_step(logits[:, -1:].argmax(-1), 20 + step, cache,
+                                          kernels=kernels)
+    assert torch.isfinite(logits).all()
+    kinds = cfg.layer_kinds
+    n_attn = sum(k in ("global", "local") for k in kinds)
+    assert calls == {"attention": n_attn,   # decode attention is plain
+                     "wkv6": kinds.count("rwkv") * (1 + steps),
+                     "rglru_scan": kinds.count("rec") * (1 + steps)}
