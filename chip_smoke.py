@@ -13,9 +13,11 @@ script.  Phases, each raising on failure (nothing is caught):
   A      each kernel against its plain PyTorch version on the card, case by
          case (the tolerances of the JAX package's kernel tests: bf16 2e-2,
          f32 1e-5, TF32 off), including each serving shape: K1 (flash
-         attention, also at d_head 256 with 16 query heads on one KV head and
-         a window), K3 (WKV6, y and the final state, T = 1 from a state,
-         ragged T) and K2 (RG-LRU scan, from h0, S = 1);
+         attention; each case prints the kernel its dtype and head size
+         choose: ``"wgmma"``, the tensor-core kernel, for bf16 at d_head 128
+         and 256, ``"simt"`` otherwise; also at d_head 256 with 16 query
+         heads on one KV head and a window), K3 (WKV6, y and the final state,
+         T = 1 from a state, ragged T) and K2 (RG-LRU scan, from h0, S = 1);
   B      the serving path, ``repro_torch.launch.serve.serve`` with all
          policies and async windowed analysis, bf16 weights drawn from a
          seed, 3 rounds x 16 tokens, on three models in turn (each freed
@@ -30,7 +32,8 @@ script.  Phases, each raising on failure (nothing is caught):
              layer per prefill and decode step, K1 once per local layer per
              prefill.
          Every kernel's launch count is set to 0 just before a model is
-         served and read just after; the session must report one window per
+         served and read just after, and every K1 launch must have gone
+         through ``"wgmma"``; the session must report one window per
          round; the prefill's last-position logits must agree with a prefill
          through the models' plain forms (``transformer.PLAIN``) on the same
          weights (bf16: rtol 5e-2, atol 1e-1 times the logits' rms where
@@ -38,7 +41,8 @@ script.  Phases, each raising on failure (nothing is caught):
   C      CUDA-event timings at the serving shapes: each kernel, its plain
          version, its bound and, for K1, ``F.scaled_dot_product_attention``
          as a yardstick the port never calls (no single PyTorch call
-         computes K2's or K3's recurrence).
+         computes K2's or K3's recurrence), and K1's SIMT kernel at the same
+         bf16 shapes as the time before the tensor-core kernel.
 
 The last lines are the card's name and power limit, one JSON line of kernel
 records, and the verdict ``{"ok": true, "device": {...}}``.
@@ -162,25 +166,34 @@ def phase_a_attention(torch, ops, fa):
         ("ragged S=1000", 2, 1000, H, KH, DH, "float32", dict(causal=True)),
         ("ragged S=1000", 2, 1000, H, KH, DH, "bfloat16", dict(causal=True, window=100)),
         ("non-causal", 2, 512, H, KH, DH, "float32", dict(causal=False)),
+        ("non-causal", 2, 512, H, KH, DH, "bfloat16", dict(causal=False)),
         ("dh=16", 2, 300, 8, 2, 16, "float32", dict(causal=True)),
         ("dh=32", 2, 256, 8, 4, 32, "bfloat16", dict(causal=True)),
         ("dh=64 scale", 2, 256, 8, 8, 64, "float32", dict(causal=True, scale=0.2)),
         ("GQA G=1", 2, 512, 8, 8, DH, "bfloat16", dict(causal=True)),
         ("GQA G=7", 2, 512, 14, 2, DH, "float32", dict(causal=True)),
+        ("GQA G=7", 2, 512, 14, 2, DH, "bfloat16", dict(causal=True)),
         ("dh=256 G=16 w", 2, 1000, RG_H, RG_KH, RG_DH, "float32", dict(causal=True, window=300)),
         ("dh=256 G=16 w", 2, 1000, RG_H, RG_KH, RG_DH, "bfloat16", dict(causal=True, window=300)),
         ("dh=256 full", 1, 333, RG_H, RG_KH, RG_DH, "float32", dict(causal=False)),
+        ("dh=256 full", 1, 333, RG_H, RG_KH, RG_DH, "bfloat16", dict(causal=False)),
+        ("dh=256 causal", 2, 1000, RG_H, RG_KH, RG_DH, "bfloat16", dict(causal=True)),
+        ("dh=256 S=37", 2, 37, RG_H, RG_KH, RG_DH, "bfloat16", rg_kw),
         ("prefill yi", YI_BATCH, YI_PROMPT, H, KH, DH, "bfloat16", dict(causal=True)),
         ("prefill rg", RG_BATCH, RG_PROMPT, RG_H, RG_KH, RG_DH, "bfloat16", rg_kw),
     ]
     errs = {}
     for i, (name, B, S, h, kh, dh, dt, kw) in enumerate(cases):
         q, k, v = qkv(B, S, h, kh, dh, getattr(torch, dt), seed=100 + i)
+        kind = fa.variant(q.dtype, dh)
+        before = fa.flash_attention.launches_by_variant[kind]
         got = fa.flash_attention(q, k, v, **kw)
         torch.cuda.synchronize()
+        if fa.flash_attention.launches_by_variant[kind] != before + 1:
+            raise RuntimeError(f"K1 {name}: no launch of the {kind!r} kernel counted")
         want = ops.attention_ref(q, k, v, **kw)
         e = (got.float() - want.float()).abs().max().item()
-        print(f"[A] K1 {name:14s} B={B} S={S} H={h} K={kh} dh={dh} {dt:8s} "
+        print(f"[A] K1 {name:14s} B={B} S={S} H={h} K={kh} dh={dh} {dt:8s} {kind:5s} "
               f"{kw}: max|err|={e:.3e} tol={TOL[dt]}")
         torch.testing.assert_close(got.float(), want.float(), **TOL[dt])
         errs[name] = e
@@ -259,15 +272,21 @@ def serve_model(torch, cfg, batch, prompt, counters, expected):
           f"{cfg.n_layers} layers: {dict((k, cfg.layer_kinds.count(k)) for k in sorted(set(cfg.layer_kinds)))}); "
           f"batch {batch}, prompt {prompt}, {ROUNDS} rounds x {TOKENS} tokens")
     torch.cuda.reset_peak_memory_stats()
+    k1 = counters["flash_attention"]
     for fn in counters.values():
         fn.launches = 0
+    k1.launches_by_variant = dict.fromkeys(k1.launches_by_variant, 0)
     res = serve(cfg, batch=batch, prompt_len=prompt, tokens=TOKENS,
                 rounds=ROUNDS, policies="all", device="cuda")
     launches = {name: fn.launches for name, fn in counters.items()}
-    print(f"[B] {cfg.name}: launches {launches}, expected {expected}")
+    by_variant = dict(k1.launches_by_variant)
+    print(f"[B] {cfg.name}: launches {launches}, expected {expected}; K1 by kernel {by_variant}")
     if launches != expected:
         raise RuntimeError(f"{cfg.name}: kernel launches {launches} on the serving "
                            f"path, expected {expected}")
+    if by_variant["wgmma"] != launches["flash_attention"]:
+        raise RuntimeError(f"{cfg.name}: K1 launches by kernel {by_variant}; every one "
+                           f"must go through 'wgmma'")
     windows = res.report.windows
     if len(windows) != ROUNDS:
         raise RuntimeError(f"{len(windows)} analysis windows, expected {ROUNDS}")
@@ -322,7 +341,7 @@ def main() -> int:
 
     dev = resolve_device("cuda")
     card = card_line()
-    kind = torch.cuda.get_device_name(0)
+    device_kind = torch.cuda.get_device_name(0)
     print(f"[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"capability {torch.cuda.get_device_capability(dev)}")
     t_start = time.perf_counter()
@@ -363,13 +382,15 @@ def main() -> int:
     print(f"[B] passed in {time.perf_counter() - t_start:.1f} s since start")
 
     # -- C: timings at the serving shapes ----------------------------------------------
-    peak_name, (bf16_peak, fp32_peak, bw_peak) = peaks(kind)
+    peak_name, (bf16_peak, fp32_peak, bw_peak) = peaks(device_kind)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rec = {}
 
     # K1 at yi-34b's prefill shape
     q, k, v = qkv(YI_BATCH, YI_PROMPT, H, KH, DH, torch.bfloat16, seed=7)
+    k1_kind = fa.variant(q.dtype, DH)
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), iters=10)
+    simt_ms = cuda_ms(lambda: fa.launch("simt", q, k, v, causal=True), iters=3, warmup=1)
     plain_ms = cuda_ms(lambda: ops.attention_ref(q, k, v, causal=True), iters=3, warmup=1)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), iters=10)
@@ -378,19 +399,22 @@ def main() -> int:
     nbytes = 2 * (2 * YI_BATCH * YI_PROMPT * H * DH + 2 * YI_BATCH * YI_PROMPT * KH * DH)
     bound_ms, bound_by = bound(flops, nbytes, bf16_peak, bw_peak)
     print(f"[C] K1 flash_attention B={YI_BATCH} S={YI_PROMPT} H={H} K={KH} dh={DH} bf16 causal: "
-          f"{ms:.4f} ms/call ({flops / ms / 1e9:.1f} TFLOP/s); bound {bound_ms:.4f} ms "
+          f"{k1_kind} {ms:.4f} ms/call ({flops / ms / 1e9:.1f} TFLOP/s), simt {simt_ms:.4f} ms "
+          f"({flops / simt_ms / 1e9:.1f} TFLOP/s); bound {bound_ms:.4f} ms "
           f"({bound_by}; {flops / 1e9:.1f} GFLOP at {peak_name} {bf16_peak / 1e12:.0f} TFLOP/s "
           f"bf16, {nbytes / 1e9:.3f} GB at {bw_peak / 1e12:.2f} TB/s); plain {plain_ms:.4f} ms; "
           f"library sdpa (yardstick, not used by the port) {library_ms:.4f} ms | card: {card}")
-    rec["flash_attention"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                                  bound_by=bound_by, library_ms=library_ms)
+    rec["flash_attention"] = dict(variant=k1_kind, ms=ms, simt_ms=simt_ms, plain_ms=plain_ms,
+                                  bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
     del q, k, v, qt, kt, vt
     free()
 
     # K1 at recurrentgemma-9b's prefill shape (d_head 256, G 16, window 2048)
     q, k, v = qkv(RG_BATCH, RG_PROMPT, RG_H, RG_KH, RG_DH, torch.bfloat16, seed=8)
     rg_kw = dict(causal=True, window=RG_WINDOW)
+    k1_kind = fa.variant(q.dtype, RG_DH)
     ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **rg_kw), iters=10)
+    simt_ms = cuda_ms(lambda: fa.launch("simt", q, k, v, **rg_kw), iters=3, warmup=1)
     plain_ms = cuda_ms(lambda: ops.attention_ref(q, k, v, **rg_kw), iters=2, warmup=1)
     pos = torch.arange(RG_PROMPT, device="cuda")
     band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - RG_WINDOW)
@@ -402,12 +426,14 @@ def main() -> int:
     nbytes = 2 * (2 * RG_BATCH * RG_PROMPT * RG_H * RG_DH + 2 * RG_BATCH * RG_PROMPT * RG_KH * RG_DH)
     b_ms, b_by = bound(flops, nbytes, bf16_peak, bw_peak)
     print(f"[C] K1 flash_attention B={RG_BATCH} S={RG_PROMPT} H={RG_H} K={RG_KH} dh={RG_DH} bf16 "
-          f"window {RG_WINDOW}: {ms:.4f} ms/call ({flops / ms / 1e9:.1f} TFLOP/s); bound "
+          f"window {RG_WINDOW}: {k1_kind} {ms:.4f} ms/call ({flops / ms / 1e9:.1f} TFLOP/s), simt "
+          f"{simt_ms:.4f} ms ({flops / simt_ms / 1e9:.1f} TFLOP/s); bound "
           f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB); plain "
           f"{plain_ms:.4f} ms; library sdpa with a band mask on K/V expanded to {RG_H} heads "
           f"(yardstick) {library_ms:.4f} ms "
           f"| card: {card}")
-    rec["flash_attention"]["at_dh256"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+    rec["flash_attention"]["at_dh256"] = dict(variant=k1_kind, ms=ms, simt_ms=simt_ms,
+                                              plain_ms=plain_ms, bound_ms=b_ms,
                                               bound_by=b_by, library_ms=library_ms,
                                               max_abs_err=k1_rg_err)
     del q, k, v, qt, kt, vt, band
@@ -461,7 +487,9 @@ def main() -> int:
 
     by_path = lambda name: {m: r["launches"][name] for m, r in runs.items() if r["launches"][name]}
     kernels = [
-        dict(name="flash_attention", route="cuda", source="src/repro_torch/csrc/flash_attention.cu",
+        dict(name="flash_attention", route="cuda",
+             source="src/repro_torch/csrc/flash_attention_sm90.cu",
+             simt_source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:35",
              launches=launches("flash_attention"), launches_by_path=by_path("flash_attention"),
              max_abs_err=k1_err, **rec["flash_attention"]),
@@ -476,7 +504,7 @@ def main() -> int:
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_kind,
                                              "count": torch.cuda.device_count()}}))
     return 0
 

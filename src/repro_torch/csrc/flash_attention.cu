@@ -7,6 +7,11 @@
 // accumulator), p rounded to v's type before the PV product, and rows whose
 // every key is masked giving 0.
 //
+// Serves fp32 at every head size and bf16 at d_head 16, 32 and 64 only:
+// bf16 at d_head 128 and 256, the serving path's shapes, goes to the
+// tensor-core kernel csrc/flash_attention_sm90.cu (the wrapper's variant()
+// chooses by dtype and head size).
+//
 // Design.  One CTA of 128 threads per (batch*head, BQ-row q tile); the loop
 // over 64-key KV tiles runs inside the CTA, because CTAs run in no order
 // and nothing carries across them (the TPU kernel carried the running state
@@ -23,14 +28,13 @@
 // KV tiles wholly above the diagonal or wholly outside the window are not
 // visited; ragged tails are masked, so any length works.
 //
-// Bound.  At the serving prefill shape (B=4, S=2048, H=56, KH=8, dh=128,
-// causal, bf16) the function does 4*B*H*S^2*dh/2 ~ 240 GFLOP on ~0.27 GB of
-// q/k/v/o, so it is compute-bound: ~0.24 ms at the H100 SXM's 989 TFLOP/s
-// bf16 tensor-core peak.  This first version computes on the fp32 SIMT
-// pipes (67 TFLOP/s peak), with 16-byte shared-memory loads that give each
-// thread 32 independent FMAs per load group; it cannot come near the
-// tensor-core bound.  Moving QK^T and PV onto mma.sync / wgmma is the next
-// step.
+// Bound.  Operations: 4*B*H*dh per visible (q, k) pair.  The kernel
+// computes on the fp32 SIMT pipes (67 TFLOP/s peak), with 16-byte
+// shared-memory loads that give each thread 32 independent FMAs per load
+// group, so it is held to the fp32 peak: exact enough for fp32 at 1e-5,
+// which bf16 tensor cores cannot meet.  (At yi-34b's bf16 prefill shape it
+// took 11.8 ms against a 0.24 ms tensor-core bound, which is why that shape
+// now runs on csrc/flash_attention_sm90.cu.)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 

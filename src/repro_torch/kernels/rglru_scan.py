@@ -21,12 +21,16 @@ from .flash_attention import _check_cuda
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
+# a, b, h0, h, B, S, W, stream
+ARGTYPES = [_P, _P, _P, _P, _I, _I, _I, _P]
+C_ENTRIES = {"rglru_scan_fwd_launch": ARGTYPES}
+
 
 @functools.cache
 def _kernel():
     """The C entry point ``rglru_scan_fwd_launch``, built and typed once."""
     fn = _build.load("rglru_scan").rglru_scan_fwd_launch
-    fn.argtypes = [_P, _P, _P, _P, _I, _I, _I, _P]
+    fn.argtypes = ARGTYPES
     fn.restype = _I
     return fn
 

@@ -28,12 +28,16 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
 
+# r, k, v, logw, u, s0, y, s_out, is_bf16, B, T, H, dh, 15 strides, stream
+ARGTYPES = [_P] * 8 + [_I] * 5 + [_L] * 15 + [_P]
+C_ENTRIES = {"wkv6_fwd_launch": ARGTYPES}
+
 
 @functools.cache
 def _kernel():
     """The C entry point ``wkv6_fwd_launch``, built and typed once."""
     fn = _build.load("wkv6").wkv6_fwd_launch
-    fn.argtypes = [_P] * 8 + [_I] * 5 + [_L] * 15 + [_P]
+    fn.argtypes = ARGTYPES
     fn.restype = _I
     return fn
 

@@ -73,6 +73,59 @@ def test_flash_attention_dh256_gqa16_matches_plain(card, kw, dtype):
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+def _check_wgmma(card, B, Sq, H, K, dh, seed, **kw):
+    """One bf16 call of K1 on the wgmma kernel against the plain version."""
+    assert fa.variant(torch.bfloat16, dh) == "wgmma"
+    g = torch.Generator(device=card).manual_seed(seed)
+    q = torch.randn((B, Sq, H, dh), generator=g, device=card).bfloat16()
+    k, v = (torch.randn((B, Sq, K, dh), generator=g, device=card).bfloat16() for _ in range(2))
+    before = dict(fa.flash_attention.launches_by_variant)
+    got = ops.attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches_by_variant == dict(before, wgmma=before["wgmma"] + 1)
+    want = ops.attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[torch.bfloat16])
+
+
+WGMMA_SETTINGS = [dict(causal=True), dict(causal=False), dict(causal=True, window=40),
+                  dict(causal=True, softcap=20.0)]
+WGMMA_IDS = ["causal", "full", "window", "softcap"]
+
+
+@pytest.mark.parametrize("S", [37, 150, 1000])   # ragged, none a multiple of the 128-row q tile
+@pytest.mark.parametrize("kw", WGMMA_SETTINGS, ids=WGMMA_IDS)
+@pytest.mark.parametrize("dh", [128, 256])
+def test_wgmma_flash_attention_matches_plain(card, dh, kw, S):
+    _check_wgmma(card, 2, S, 6, 2, dh, seed=S + dh, **kw)
+
+
+@pytest.mark.parametrize("G", [1, 7, 16])
+@pytest.mark.parametrize("dh", [128, 256])
+def test_wgmma_flash_attention_gqa_matches_plain(card, dh, G):
+    _check_wgmma(card, 2, 300, 2 * G, 2, dh, seed=G, causal=True)
+
+
+@pytest.mark.parametrize("dh", [128, 256])
+def test_wgmma_flash_attention_many_waves(card, dh):
+    """B*H*q tiles = 4*56*4 = 896 CTAs of one SM each: several waves."""
+    _check_wgmma(card, 4, 500, 56, 8, dh, seed=5, causal=True)
+
+
+@pytest.mark.parametrize("dh", [128, 256])
+def test_wgmma_single_kv_tile_no_mask(card, dh):
+    """64 keys, no mask: one K/V tile at either head size and no masked
+    element, so only the swizzle and the wgmma descriptors are tested."""
+    _check_wgmma(card, 1, 64, 2, 1, dh, seed=11, causal=False)
+
+
+@pytest.mark.parametrize("dh,S", [(128, 128), (256, 64)])
+def test_wgmma_causal_one_q_tile(card, dh, S):
+    """S = one q tile (two warpgroups of 64 rows at dh 128, one at dh 256):
+    the causal mask alone tests which row and column each accumulator
+    fragment holds."""
+    _check_wgmma(card, 1, S, 2, 1, dh, seed=12, causal=True)
+
+
 def _wkv_inputs(card, B, T, H, dh, dtype, seed):
     g = torch.Generator(device=card).manual_seed(seed)
     r, k, v = (0.5 * torch.randn((B, T, H, dh), generator=g, device=card) for _ in range(3))
