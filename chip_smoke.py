@@ -17,7 +17,8 @@ script.  Phases, each raising on failure (nothing is caught):
          choose: ``"wgmma"``, the tensor-core kernel, for bf16 at d_head 128
          and 256, ``"simt"`` otherwise; also at d_head 256 with 16 query
          heads on one KV head and a window), K3 (WKV6, y and the final state,
-         T = 1 from a state, ragged T) and K2 (RG-LRU scan, from h0, S = 1);
+         T = 1 from a state, ragged T, d_head 32: two blocks of value columns
+         per head, with B*H = 21) and K2 (RG-LRU scan, from h0, S = 1);
   B      the serving path, ``repro_torch.launch.serve.serve`` with all
          policies and async windowed analysis, bf16 weights drawn from a
          seed, 3 rounds x 16 tokens, on three models in turn (each freed
@@ -42,7 +43,10 @@ script.  Phases, each raising on failure (nothing is caught):
          version, its bound and, for K1, ``F.scaled_dot_product_attention``
          as a yardstick the port never calls (no single PyTorch call
          computes K2's or K3's recurrence), and K1's SIMT kernel at the same
-         bf16 shapes as the time before the tensor-core kernel.
+         bf16 shapes as the time before the tensor-core kernel; K3 also at
+         rwkv6-3b's decode shape (T = 1 from a state; device time over a
+         CUDA graph, since an eager call costs the host more), with its grid
+         and the compiled schedule (CTAs resident per SM) printed.
 
 The last lines are the card's name and power limit, one JSON line of kernel
 records, and the verdict ``{"ok": true, "device": {...}}``.
@@ -66,6 +70,7 @@ RG_BATCH, RG_PROMPT = 2, 4096
 H, KH, DH = 56, 8, 128           # yi-34b attention widths
 RG_H, RG_KH, RG_DH, RG_WINDOW, RG_W = 16, 1, 256, 2048, 4096   # recurrentgemma-9b
 RWKV_H, RWKV_DH = 40, 64         # rwkv6-3b heads
+GRAPH_CALLS = 50                 # K3 launches per CUDA graph at the decode shape
 TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2), "float32": dict(rtol=1e-5, atol=1e-5)}
 LOGITS_TOL = dict(rtol=5e-2, atol=1e-1)   # bf16 model, as the JAX package's
                                           # prefill/decode consistency test
@@ -211,6 +216,7 @@ def phase_a_wkv6(torch, ops, k3):
         ("ragged T=37", 2, 37, 8, RWKV_DH, "float32", True),
         ("ragged T=37", 2, 37, 8, RWKV_DH, "bfloat16", False),
         ("T=100 dh=32", 2, 100, 4, 32, "float32", False),
+        ("dh=32 BH=21", 3, 17, 7, 32, "bfloat16", True),
         ("T=256", 3, 256, 5, RWKV_DH, "float32", True),
         ("prefill rwkv", RWKV_BATCH, RWKV_PROMPT, RWKV_H, RWKV_DH, "bfloat16", False),
     ]
@@ -455,8 +461,43 @@ def main() -> int:
           f"({b_by}; {flops / 1e9:.2f} GFLOP at {fp32_peak / 1e12:.0f} TFLOP/s fp32, "
           f"{nbytes / 1e9:.3f} GB at {bw_peak / 1e12:.2f} TB/s); plain {plain_ms:.4f} ms; "
           f"library: no single PyTorch call | card: {card}")
-    rec["wkv6"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    sched = k3.schedule(torch.bfloat16, RWKV_DH)
+    n_cta = k3.grid(RWKV_BATCH, RWKV_H, RWKV_DH)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    waves = n_cta / (sched["ctas_per_sm"] * sms)
+    print(f"[C] K3 grid {n_cta} CTAs x {sched['threads']} threads ({sched['value_columns']} "
+          f"value columns of one (b, h) each), {sched['smem_bytes']} B shared memory per CTA, "
+          f"{sched['ctas_per_sm']} CTAs resident per SM x {sms} SMs: {waves:.3f} waves, "
+          f"{n_cta / sms:.3f} CTAs per SM")
+    rec["wkv6"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                       grid=n_cta, schedule=sched)
     del args
+    free()
+
+    # K3 at rwkv6-3b's decode shape: one step from the cached state.  An
+    # eager call costs the host more than the kernel costs the card, so the
+    # kernel's time is taken over a CUDA graph of GRAPH_CALLS launches; the
+    # eager call's time is printed beside it.
+    args = wkv_inputs(RWKV_BATCH, 1, RWKV_H, RWKV_DH, torch.bfloat16, seed=11, with_s0=True)
+    eager_ms = cuda_ms(lambda: k3.wkv6_kernel(*args), iters=200, warmup=5)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(GRAPH_CALLS):
+            k3.wkv6_kernel(*args)
+    ms = cuda_ms(graph.replay, iters=10) / GRAPH_CALLS
+    plain_ms = cuda_ms(lambda: ops.wkv6_ref(*args), iters=20, warmup=2)
+    flops = 5 * RWKV_BATCH * RWKV_H * RWKV_DH * RWKV_DH
+    nbytes = (sum(t.numel() * t.element_size() for t in args)            # r, k, v, logw, u, s0
+              + RWKV_BATCH * RWKV_H * RWKV_DH * 2                          # y (bf16)
+              + RWKV_BATCH * RWKV_H * RWKV_DH * RWKV_DH * 4)               # s_final
+    b_ms, b_by = bound(flops, nbytes, fp32_peak, bw_peak)
+    print(f"[C] K3 wkv6 decode B={RWKV_BATCH} T=1 H={RWKV_H} dh={RWKV_DH} bf16 from s0: "
+          f"{ms * 1e3:.2f} us/call in a CUDA graph of {GRAPH_CALLS} ({eager_ms * 1e3:.2f} us "
+          f"per eager call); bound {b_ms * 1e3:.2f} us ({b_by}; {nbytes / 1e6:.2f} MB at "
+          f"{bw_peak / 1e12:.2f} TB/s); plain {plain_ms * 1e3:.2f} us | card: {card}")
+    rec["wkv6"]["at_decode"] = dict(ms=ms, eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                    bound_by=b_by, library_ms=None)
+    del args, graph
     free()
 
     # K2 at recurrentgemma-9b's prefill shape

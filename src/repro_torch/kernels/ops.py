@@ -53,16 +53,18 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              s0: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of :func:`wkv6`: heads merged into the batch,
-    :func:`ref.wkv6_ref`, heads split again."""
+    :func:`ref.wkv6_ref`, heads split again.  v (and s0) may hold a block
+    of the value columns, as one CTA of the kernel does."""
     B, T, H, dh = r.shape
+    dv = v.shape[-1]
 
     def merge(x):
-        return x.transpose(1, 2).reshape(B * H, T, dh)
+        return x.transpose(1, 2).reshape(B * H, T, x.shape[-1])
 
     u_m = u[None].expand(B, H, dh).reshape(B * H, dh)
-    s0_m = None if s0 is None else s0.reshape(B * H, dh, dh)
+    s0_m = None if s0 is None else s0.reshape(B * H, dh, dv)
     y, s = ref.wkv6_ref(merge(r), merge(k), merge(v), merge(logw), u_m, s0_m)
-    return y.reshape(B, H, T, dh).transpose(1, 2), s.reshape(B, H, dh, dh)
+    return y.reshape(B, H, T, dv).transpose(1, 2), s.reshape(B, H, dh, dv)
 
 
 def wkv6_kernel_args(r, k, v, logw, u, s0=None):

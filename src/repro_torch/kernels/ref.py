@@ -53,10 +53,13 @@ def wkv6_ref(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              logw: torch.Tensor, u: torch.Tensor,
              s0: Optional[torch.Tensor] = None):
     """Sequential WKV6 over merged (BH, T, dh) tensors; u: (BH, dh).
-    Returns (y (BH, T, dh) in r's dtype, s_final (BH, dh, dh) fp32)."""
+    Returns (y (BH, T, dh) in r's dtype, s_final (BH, dh, dh) fp32).  v
+    (and s0, y, s_final with it) may hold any dv <= dh of the value
+    columns: column e of y and of the state depends on v[..., e] alone."""
     BH, T, dh = r.shape
+    dv = v.shape[-1]
     f32 = torch.float32
-    s = r.new_zeros((BH, dh, dh), dtype=f32) if s0 is None else s0.to(f32)
+    s = r.new_zeros((BH, dh, dv), dtype=f32) if s0 is None else s0.to(f32)
     uf = u.to(f32)[:, :, None]
     ys = []
     for t in range(T):

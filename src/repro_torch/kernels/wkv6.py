@@ -4,10 +4,13 @@ The kernel replaces ``repro/kernels/wkv6.py::_wkv6_kernel``; its note in
 the source gives its bound and design.  This wrapper takes the model's
 layout directly — r, k, v, logw ``(B, T, H, dh)``, u ``(H, dh)`` — and
 passes strides, so heads are never merged by a copy.  It checks device,
-dtype, shape and contiguity and raises on anything else, allocates y and
-the final state with ``torch.empty``, launches on the current stream
-without synchronizing, and raises on the launch's ``cudaError_t``.
-``wkv6_kernel.launches`` counts the launches.
+dtype, shape, contiguity and the 16-byte alignment the kernel's
+``cp.async`` copies need, and raises on anything else, allocates y and the
+final state with ``torch.empty``, launches on the current stream without
+synchronizing, and raises on the launch's ``cudaError_t``.
+``wkv6_kernel.launches`` counts the launches.  The kernel gives each CTA
+``VALUE_COLUMNS_PER_CTA`` value columns of one (b, h) (:func:`grid`);
+:func:`schedule` reads the compiled schedule back from the card.
 """
 from __future__ import annotations
 
@@ -23,6 +26,8 @@ from .flash_attention import _check_cuda
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 SUPPORTED_HEAD_DIMS = (32, 64)
 MAX_GRID_X = 2 ** 31 - 1
+VALUE_COLUMNS_PER_CTA = 16   # EV in csrc/wkv6.cu
+ALIGN = 16                   # bytes, for cp.async
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -30,7 +35,9 @@ _L = ctypes.c_longlong
 
 # r, k, v, logw, u, s0, y, s_out, is_bf16, B, T, H, dh, 15 strides, stream
 ARGTYPES = [_P] * 8 + [_I] * 5 + [_L] * 15 + [_P]
-C_ENTRIES = {"wkv6_fwd_launch": ARGTYPES}
+# is_bf16, dh, out (int[4])
+INFO_ARGTYPES = [_I, _I, _P]
+C_ENTRIES = {"wkv6_fwd_launch": ARGTYPES, "wkv6_fwd_info": INFO_ARGTYPES}
 
 
 @functools.cache
@@ -40,6 +47,26 @@ def _kernel():
     fn.argtypes = ARGTYPES
     fn.restype = _I
     return fn
+
+
+def grid(B: int, H: int, dh: int) -> int:
+    """CTAs of one launch: one per (b, h) and block of value columns."""
+    return B * H * (dh // VALUE_COLUMNS_PER_CTA)
+
+
+def schedule(dtype: torch.dtype, dh: int) -> dict:
+    """The compiled kernel's schedule for ``dtype`` and ``dh``, read from the
+    card: value columns and threads per CTA, static shared memory per CTA
+    and CTAs resident per SM."""
+    fn = _build.load("wkv6").wkv6_fwd_info
+    fn.argtypes = INFO_ARGTYPES
+    fn.restype = _I
+    out = (ctypes.c_int * 4)()
+    err = fn(int(dtype == torch.bfloat16), dh, ctypes.addressof(out))
+    if err:
+        raise RuntimeError(f"wkv6_fwd_info failed: cudaError_t {err}")
+    return dict(value_columns=out[0], threads=out[1], smem_bytes=out[2],
+                ctas_per_sm=out[3])
 
 
 def check_inputs(r, k, v, logw, u, s0) -> None:
@@ -71,8 +98,11 @@ def check_inputs(r, k, v, logw, u, s0) -> None:
         raise ValueError(f"u has shape {tuple(u.shape)}, expected {(H, dh)}")
     if s0 is not None and tuple(s0.shape) != (B, H, dh, dh):
         raise ValueError(f"s0 has shape {tuple(s0.shape)}, expected {(B, H, dh, dh)}")
-    if min(B, T, H) == 0 or B * H > MAX_GRID_X:
+    if min(B, T, H) == 0 or grid(B, H, dh) > MAX_GRID_X:
         raise ValueError(f"unsupported sizes B={B}, T={T}, H={H}")
+    for name, t in (("r", r), ("k", k), ("v", v), ("logw", logw), ("s0", s0)):
+        if t is not None and t.data_ptr() % ALIGN:
+            raise ValueError(f"{name} must start on a {ALIGN}-byte boundary")
 
 
 def wkv6_kernel(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -20,6 +20,7 @@ from repro.models import layers as jlayers  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
        "bfloat16": dict(rtol=2e-2, atol=2e-2)}

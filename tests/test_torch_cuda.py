@@ -152,6 +152,64 @@ def test_wkv6_matches_plain(card, B, T, H, dh, with_s0, dtype):
     torch.testing.assert_close(s, s_want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_s0", [False, True])
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("T", [1, 7, 8, 9, 15, 16, 17, 100])
+def test_wkv6_value_split_and_staging_edges(card, T, dh, with_s0, dtype):
+    """K3 split into dh / 16 column blocks per (b, h) (2 at dh 32, 4 at
+    dh 64), with B*H = 21 (B = 3, H = 7), at lengths around its staged
+    blocks of 8 steps and its ring of raw stages (T = 100: 13 blocks)."""
+    B, H = 3, 7
+    r, k, v, logw, u, s0 = _wkv_inputs(card, B, T, H, dh, dtype, seed=1000 + T)
+    s0 = s0 if with_s0 else None
+    before = k3.wkv6_kernel.launches
+    y, s = ops.wkv6(r, k, v, logw, u, s0)
+    torch.cuda.synchronize()
+    assert k3.wkv6_kernel.launches == before + 1
+    y_want, s_want = ops.wkv6_ref(r, k, v, logw, u, s0)
+    torch.testing.assert_close(y.float(), y_want.float(), **TOL[dtype])
+    torch.testing.assert_close(s, s_want, **TOL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("T", [16, 37])
+def test_wkv6_prefill_then_steps_equals_one_call(card, T, dh, dtype):
+    """The decode path: a prefill of T steps, then 8 single-step calls
+    threaded through s_final, gives the y and the state of one call over
+    T + 8 steps."""
+    B, H, steps = 2, 5, 8
+    r, k, v, logw, u, _ = _wkv_inputs(card, B, T + steps, H, dh, dtype, seed=2000 + T)
+    y_all, s_all = k3.wkv6_kernel(r, k, v, logw, u)
+    ys = []
+    y, s = k3.wkv6_kernel(*(a[:, :T].contiguous() for a in (r, k, v, logw)), u)
+    ys.append(y)
+    for t in range(T, T + steps):
+        y, s = k3.wkv6_kernel(*(a[:, t:t + 1].contiguous() for a in (r, k, v, logw)), u, s)
+        ys.append(y)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(torch.cat(ys, dim=1).float(), y_all.float(), **TOL[dtype])
+    torch.testing.assert_close(s, s_all, **TOL[torch.float32])
+
+
+def test_wkv6_schedule_keeps_the_serving_grid_resident(card):
+    """At rwkv6-3b's prefill (B=4, H=40, dh=64, bf16) every CTA of the grid
+    is resident at once: one wave, no second round on a few SMs."""
+    sched = k3.schedule(torch.bfloat16, 64)
+    assert sched["value_columns"] == k3.VALUE_COLUMNS_PER_CTA
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert sched["ctas_per_sm"] * sms >= k3.grid(4, 40, 64)
+
+
+def test_wkv6_rejects_misaligned_inputs(card):
+    buf = torch.zeros(1 * 4 * 2 * 64 + 1, device=card)
+    r = buf[1:].view(1, 4, 2, 64)      # contiguous, 4 bytes past a boundary
+    ok = torch.zeros(1, 4, 2, 64, device=card)
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        k3.wkv6_kernel(r, ok, ok, ok, torch.zeros(2, 64, device=card))
+
+
 @pytest.mark.parametrize("B,S,W,with_h0", [(2, 64, 128, False), (3, 37, 100, True),
                                            (2, 1, 4096, True), (1, 300, 64, True)])
 def test_rglru_scan_matches_plain(card, B, S, W, with_h0):

@@ -82,3 +82,12 @@ def test_c_parameters_match_the_wrapper_argtypes(name):
     ret, params = C_ENTRIES[name]
     assert ret == "int"   # the cudaError_t the wrappers read with restype c_int
     assert [KIND_OF_CTYPE[t] for t in WRAPPED[name]] == params
+
+
+def test_wkv6_value_columns_match_the_source():
+    """``wkv6.grid`` (the smoke prints it) takes K3's value columns per CTA
+    from the wrapper; the kernel from its source."""
+    src = (_build.CSRC / "wkv6.cu").read_text()
+    ev = int(re.search(r"constexpr int EV = (\d+);", src).group(1))
+    assert ev == k3.VALUE_COLUMNS_PER_CTA
+    assert k3.grid(4, 40, 64) == 4 * 40 * 64 // ev

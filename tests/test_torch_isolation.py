@@ -12,6 +12,8 @@ import pytest
 
 pytest.importorskip("torch")
 
+from _torch_threads import ONE_THREAD_ENV  # noqa: E402
+
 REPO = Path(__file__).resolve().parent.parent
 PORT = REPO / "src" / "repro_torch"
 SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
@@ -32,7 +34,7 @@ def _foreign(name: str) -> bool:
 
 
 def test_import_loads_no_jax_and_no_reference():
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"))
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), **ONE_THREAD_ENV)
     out = subprocess.run([sys.executable, "-c", PROBE], env=env, check=True,
                          capture_output=True, text=True, timeout=300)
     got = json.loads(out.stdout.strip().splitlines()[-1])

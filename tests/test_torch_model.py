@@ -25,6 +25,7 @@ from repro.models.model import prefill as jprefill  # noqa: E402
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.models import from_jax_params, init_params  # noqa: E402
 from repro_torch.models.transformer import init_cache  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
 
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=5e-2, atol=1e-1)}

@@ -33,22 +33,13 @@ from repro_torch.models import from_jax_params, init_params, layers, rglru  # no
 from repro_torch.models.transformer import (PLAIN, group_meta,  # noqa: E402
                                             layer_cache_shape)
 from test_torch_model import flatten  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
 
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=5e-2, atol=1e-1)}
 B, S, STEPS = 2, 24, 8          # S > the reduced window (16): the ring wraps
 N_LAYERS = 8                    # 2 x (rec, rec, local) + a leftover (rec, rec)
 
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """Tiny tensors: one torch thread is enough, and it keeps these tests
-    from crowding the timing-calibrated case studies that may run beside
-    them under xdist."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(x):

@@ -30,25 +30,17 @@ from repro.models.model import decode_step as jdecode_step  # noqa: E402
 from repro.models.model import prefill as jprefill  # noqa: E402
 from repro_torch.configs import get_config, reduced_config  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import wkv6 as k3  # noqa: E402
 from repro_torch.models import from_jax_params, init_params, layers, rwkv6  # noqa: E402
 from repro_torch.models.model import _sin_at  # noqa: E402
 from repro_torch.models.transformer import init_cache, layer_cache_shape  # noqa: E402
 from test_torch_model import flatten  # noqa: E402
+from _torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
 
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
        "bfloat16": dict(rtol=5e-2, atol=1e-1)}
 B, S, STEPS = 2, 12, 8
 
-
-@pytest.fixture(autouse=True)
-def _one_thread():
-    """Tiny tensors: one torch thread is enough, and it keeps these tests
-    from crowding the timing-calibrated case studies that may run beside
-    them under xdist."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np(x):
@@ -143,6 +135,31 @@ def test_wkv6_state_threading():
                             jnp.zeros((B_ * H, dh)))
     np.testing.assert_allclose(full.reshape(B_ * H, T, dh).numpy(), np.asarray(want),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dh", [32, 64])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("with_s0", [False, True])
+def test_wkv6_value_columns_are_independent(dh, dtype, with_s0):
+    """The invariant K3's value split rests on: the plain version run on one
+    block of value columns of v (and of s0), as one CTA of the kernel runs,
+    gives that block of y and of s_final, bit for bit."""
+    B_, T, H = 2, 37, 3
+    r, k, v, logw, u = _wkv_inputs(5, B_, T, H, dh)
+    s0 = np.random.default_rng(6).standard_normal((B_, H, dh, dh)).astype(np.float32)
+    td = getattr(torch, dtype)
+    r, k, v = (torch.from_numpy(a).to(td) for a in (r, k, v))
+    logw, u, s0 = _t(logw, u, s0)
+    s0 = s0 if with_s0 else None
+    y, s_final = ops.wkv6_ref(r, k, v, logw, u, s0)
+    ev = k3.VALUE_COLUMNS_PER_CTA
+    assert dh % ev == 0
+    for e0 in range(0, dh, ev):
+        cols = slice(e0, e0 + ev)
+        yb, sb = ops.wkv6_ref(r, k, v[..., cols], logw, u,
+                              None if s0 is None else s0[..., cols])
+        assert torch.equal(yb, y[..., cols])
+        assert torch.equal(sb, s_final[..., cols])
 
 
 def test_ops_wkv6_rejects_other_devices():

@@ -21,12 +21,14 @@ from repro_torch.kernels import wkv6 as k3  # noqa: E402
 from repro_torch.launch.serve import build_config, serve  # noqa: E402
 from repro_torch.models import init_params  # noqa: E402
 from repro_torch.models.transformer import Kernels  # noqa: E402
+from _torch_threads import ONE_THREAD_ENV, one_torch_thread  # noqa: E402,F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
 
 
 def _run(*args, env_extra=None):
-    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), **(env_extra or {}))
+    env = dict(os.environ, PYTHONPATH=str(REPO / "src"), **ONE_THREAD_ENV,
+               **(env_extra or {}))
     return subprocess.run([sys.executable, "-m", "repro_torch.launch.serve", *args],
                           env=env, capture_output=True, text=True, timeout=600)
 
