@@ -18,7 +18,10 @@ script.  Phases, each raising on failure (nothing is caught):
          and 256, ``"simt"`` otherwise; also at d_head 256 with 16 query
          heads on one KV head and a window), K3 (WKV6, y and the final state,
          T = 1 from a state, ragged T, d_head 32: two blocks of value columns
-         per head, with B*H = 21) and K2 (RG-LRU scan, from h0, S = 1);
+         per head, with B*H = 21) and K2 (RG-LRU scan, equal to the plain
+         loop bit for bit; each case prints the kernel its shape chooses:
+         ``"staged"``, a and b staged by TMA, for S > 1 with W % 4 == 0,
+         ``"simple"`` otherwise; from h0, S = 1, ragged S and W);
   B      the serving path, ``repro_torch.launch.serve.serve`` with all
          policies and async windowed analysis, bf16 weights drawn from a
          seed, 3 rounds x 16 tokens, on three models in turn (each freed
@@ -33,8 +36,10 @@ script.  Phases, each raising on failure (nothing is caught):
              layer per prefill and decode step, K1 once per local layer per
              prefill.
          Every kernel's launch count is set to 0 just before a model is
-         served and read just after, and every K1 launch must have gone
-         through ``"wgmma"``; the session must report one window per
+         served and read just after, every K1 launch must have gone
+         through ``"wgmma"``, and K2's launches split by kernel: the
+         prefill's on ``"staged"``, the decode steps' on ``"simple"``; the
+         session must report one window per
          round; the prefill's last-position logits must agree with a prefill
          through the models' plain forms (``transformer.PLAIN``) on the same
          weights (bf16: rtol 5e-2, atol 1e-1 times the logits' rms where
@@ -43,10 +48,13 @@ script.  Phases, each raising on failure (nothing is caught):
          version, its bound and, for K1, ``F.scaled_dot_product_attention``
          as a yardstick the port never calls (no single PyTorch call
          computes K2's or K3's recurrence), and K1's SIMT kernel at the same
-         bf16 shapes as the time before the tensor-core kernel; K3 also at
-         rwkv6-3b's decode shape (T = 1 from a state; device time over a
-         CUDA graph, since an eager call costs the host more), with its grid
-         and the compiled schedule (CTAs resident per SM) printed.
+         bf16 shapes as the time before the tensor-core kernel; K2's staged
+         and simple kernels alternated at recurrentgemma-9b's prefill shape
+         (the simple one is the time before), with TB/s, the grid and the
+         staged kernel's compiled schedule; K2 and K3 also at their decode
+         shapes (S = 1 from h0, T = 1 from a state; device time over a CUDA
+         graph, since an eager call costs the host more), with K3's grid and
+         compiled schedule (CTAs resident per SM) printed.
 
 The last lines are the card's name and power limit, one JSON line of kernel
 records, and the verdict ``{"ok": true, "device": {...}}``.
@@ -70,7 +78,7 @@ RG_BATCH, RG_PROMPT = 2, 4096
 H, KH, DH = 56, 8, 128           # yi-34b attention widths
 RG_H, RG_KH, RG_DH, RG_WINDOW, RG_W = 16, 1, 256, 2048, 4096   # recurrentgemma-9b
 RWKV_H, RWKV_DH = 40, 64         # rwkv6-3b heads
-GRAPH_CALLS = 50                 # K3 launches per CUDA graph at the decode shape
+GRAPH_CALLS = 50                 # K2 or K3 launches per CUDA graph at the decode shape
 TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2), "float32": dict(rtol=1e-5, atol=1e-5)}
 LOGITS_TOL = dict(rtol=5e-2, atol=1e-1)   # bf16 model, as the JAX package's
                                           # prefill/decode consistency test
@@ -241,26 +249,41 @@ def phase_a_wkv6(torch, ops, k3):
 
 
 def phase_a_rglru(torch, ops, k2):
-    """K2 vs plain; returns the max abs error at the serving prefill shape."""
+    """K2 vs plain, bit for bit; returns the max abs error at the serving
+    prefill shape (0 when it passes)."""
     cases = [  # name, B, S, W, with_h0
         ("S=1 from h0", RG_BATCH, 1, RG_W, True),
         ("from h0", 2, 64, 128, True),
         ("ragged S=37", 3, 37, 100, True),
         ("S=300", 1, 300, 64, False),
+        ("S=4097 W=4100", 1, 4097, 4100, True),
+        ("odd W=99", 2, 300, 99, True),
         ("prefill rg", RG_BATCH, RG_PROMPT, RG_W, False),
     ]
     err = None
     for i, (name, B, S, W, with_h0) in enumerate(cases):
         args = scan_inputs(B, S, W, seed=300 + i, with_h0=with_h0)
+        kind = k2.variant(B, S, W)
+        before = k2.rglru_scan_kernel.launches_by_variant[kind]
         got = k2.rglru_scan_kernel(*args)
         torch.cuda.synchronize()
+        if k2.rglru_scan_kernel.launches_by_variant[kind] != before + 1:
+            raise RuntimeError(f"K2 {name}: no launch of the {kind!r} kernel counted")
         want = ops.rglru_scan_ref(*args)
         e = (got - want).abs().max().item()
-        print(f"[A] K2 {name:14s} B={B} S={S} W={W} float32 h0={with_h0}: "
-              f"max|err|={e:.3e} tol={TOL['float32']}")
-        torch.testing.assert_close(got, want, **TOL["float32"])
+        print(f"[A] K2 {name:14s} B={B} S={S} W={W} float32 h0={with_h0} {kind:6s}: "
+              f"max|err|={e:.3e}, bit for bit: {torch.equal(got, want)}")
+        if not torch.equal(got, want):
+            raise RuntimeError(f"K2 {name}: the {kind!r} kernel differs from the plain loop")
         if name == "prefill rg":
             err = e
+            simple = k2.launch("simple", *args)
+            torch.cuda.synchronize()
+            print(f"[A] K2 {name:14s} simple kernel (uncounted): bit for bit: "
+                  f"{torch.equal(simple, want)}")
+            if not torch.equal(simple, want):
+                raise RuntimeError("K2: the simple kernel differs from the plain loop")
+            del simple
         del args, got, want
         free()
     return err
@@ -268,7 +291,8 @@ def phase_a_rglru(torch, ops, k2):
 
 def serve_model(torch, cfg, batch, prompt, counters, expected):
     """Phase B for one model: serve it with every launch count set to 0
-    just before, check the counts, windows, tokens and the kernel-vs-plain
+    just before, check the counts (K2's by kernel: the prefill's staged,
+    the decode steps' simple), windows, tokens and the kernel-vs-plain
     prefill logits; returns the counts and the timings."""
     from repro_torch.launch.serve import serve
     from repro_torch.models.transformer import PLAIN
@@ -278,21 +302,30 @@ def serve_model(torch, cfg, batch, prompt, counters, expected):
           f"{cfg.n_layers} layers: {dict((k, cfg.layer_kinds.count(k)) for k in sorted(set(cfg.layer_kinds)))}); "
           f"batch {batch}, prompt {prompt}, {ROUNDS} rounds x {TOKENS} tokens")
     torch.cuda.reset_peak_memory_stats()
-    k1 = counters["flash_attention"]
+    k1, k2 = counters["flash_attention"], counters["rglru_scan"]
     for fn in counters.values():
         fn.launches = 0
-    k1.launches_by_variant = dict.fromkeys(k1.launches_by_variant, 0)
+    for fn in (k1, k2):
+        fn.launches_by_variant = dict.fromkeys(fn.launches_by_variant, 0)
     res = serve(cfg, batch=batch, prompt_len=prompt, tokens=TOKENS,
                 rounds=ROUNDS, policies="all", device="cuda")
     launches = {name: fn.launches for name, fn in counters.items()}
     by_variant = dict(k1.launches_by_variant)
-    print(f"[B] {cfg.name}: launches {launches}, expected {expected}; K1 by kernel {by_variant}")
+    k2_by_variant = dict(k2.launches_by_variant)
+    rec_layers = cfg.layer_kinds.count("rec")
+    k2_expected = dict(staged=rec_layers, simple=rec_layers * ROUNDS * TOKENS)
+    print(f"[B] {cfg.name}: launches {launches}, expected {expected}; K1 by kernel "
+          f"{by_variant}; K2 by kernel {k2_by_variant}, expected {k2_expected}")
     if launches != expected:
         raise RuntimeError(f"{cfg.name}: kernel launches {launches} on the serving "
                            f"path, expected {expected}")
     if by_variant["wgmma"] != launches["flash_attention"]:
         raise RuntimeError(f"{cfg.name}: K1 launches by kernel {by_variant}; every one "
                            f"must go through 'wgmma'")
+    if k2_by_variant != k2_expected:
+        raise RuntimeError(f"{cfg.name}: K2 launches by kernel {k2_by_variant}; every "
+                           f"prefill launch must go through 'staged', every decode "
+                           f"step's through 'simple'")
     windows = res.report.windows
     if len(windows) != ROUNDS:
         raise RuntimeError(f"{len(windows)} analysis windows, expected {ROUNDS}")
@@ -319,7 +352,8 @@ def serve_model(torch, cfg, batch, prompt, counters, expected):
     torch.testing.assert_close(res.prefill_logits, plain_logits, **tol)
     del plain_logits
     warm_ms = cuda_ms(lambda: res.model.prefill(res.prompts, s_buf), iters=2, warmup=1)
-    out = dict(launches=launches, prefill_ms=res.prefill_s * 1e3, tok_s=res.decode_tok_s,
+    out = dict(launches=launches, k2_by_variant=k2_by_variant,
+               prefill_ms=res.prefill_s * 1e3, tok_s=res.decode_tok_s,
                warm_ms=warm_ms, plain_ms=plain_ms, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     del res
     free()
@@ -389,6 +423,7 @@ def main() -> int:
 
     # -- C: timings at the serving shapes ----------------------------------------------
     peak_name, (bf16_peak, fp32_peak, bw_peak) = peaks(device_kind)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rec = {}
 
@@ -463,7 +498,6 @@ def main() -> int:
           f"library: no single PyTorch call | card: {card}")
     sched = k3.schedule(torch.bfloat16, RWKV_DH)
     n_cta = k3.grid(RWKV_BATCH, RWKV_H, RWKV_DH)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     waves = n_cta / (sched["ctas_per_sm"] * sms)
     print(f"[C] K3 grid {n_cta} CTAs x {sched['threads']} threads ({sched['value_columns']} "
           f"value columns of one (b, h) each), {sched['smem_bytes']} B shared memory per CTA, "
@@ -500,20 +534,73 @@ def main() -> int:
     del args, graph
     free()
 
-    # K2 at recurrentgemma-9b's prefill shape
+    # K2 at recurrentgemma-9b's prefill shape: the staged kernel (the entry
+    # point) and the simple one (the design it replaced, the time before), alternated
     args = scan_inputs(RG_BATCH, RG_PROMPT, RG_W, seed=10, with_h0=False)
-    ms = cuda_ms(lambda: k2.rglru_scan_kernel(*args), iters=10)
+    k2_kind = k2.variant(RG_BATCH, RG_PROMPT, RG_W)
+    times = {"staged": [], "simple": []}
+    for kind in ("staged", "simple", "simple", "staged"):
+        fn = ((lambda: k2.rglru_scan_kernel(*args)) if kind == k2_kind
+              else (lambda: k2.launch(kind, *args)))
+        times[kind].append(cuda_ms(fn, iters=20))
+    ms, simple_ms = min(times["staged"]), min(times["simple"])
     plain_ms = cuda_ms(lambda: ops.rglru_scan_ref(*args), iters=1, warmup=1)
     n = RG_BATCH * RG_PROMPT * RG_W
     flops, nbytes = 2 * n, 3 * n * 4
     b_ms, b_by = bound(flops, nbytes, fp32_peak, bw_peak)
-    print(f"[C] K2 rglru_scan B={RG_BATCH} S={RG_PROMPT} W={RG_W} f32: {ms:.4f} ms/call "
-          f"({nbytes / ms / 1e9:.3f} TB/s); bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e9:.3f} GB "
-          f"at {bw_peak / 1e12:.2f} TB/s); plain {plain_ms:.4f} ms; library: no single "
-          f"PyTorch call | card: {card}")
-    rec["rglru_scan"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                             library_ms=None)
+    print(f"[C] K2 rglru_scan B={RG_BATCH} S={RG_PROMPT} W={RG_W} f32: {k2_kind} "
+          f"{', '.join(f'{t:.4f}' for t in times['staged'])} ms/call "
+          f"({nbytes / ms / 1e9:.3f} TB/s), simple {', '.join(f'{t:.4f}' for t in times['simple'])} "
+          f"ms ({nbytes / simple_ms / 1e9:.3f} TB/s); bound {b_ms:.4f} ms ({b_by}; "
+          f"{nbytes / 1e9:.3f} GB at {bw_peak / 1e12:.2f} TB/s); plain {plain_ms:.4f} ms; "
+          f"library: no single PyTorch call | card: {card}")
+    sched = k2.schedule()
+    n_cta = k2.grid(RG_BATCH, RG_W)
+    waves = n_cta / (sched["ctas_per_sm"] * sms)
+    print(f"[C] K2 staged grid {n_cta} CTAs x {sched['threads']} threads ({sched['channels']} "
+          f"channels of one batch row each), ring of {sched['stages']} stages x "
+          f"{sched['steps_per_stage']} steps, {sched['smem_bytes']} B dynamic shared memory per "
+          f"CTA, {sched['ctas_per_sm']} CTAs resident per SM x {sms} SMs: {waves:.3f} waves, "
+          f"{n_cta / sms:.3f} CTAs per SM")
+    rec["rglru_scan"] = dict(variant=k2_kind, ms=ms, staged_ms=times["staged"],
+                             simple_ms=simple_ms, simple_runs_ms=times["simple"],
+                             plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                             grid=n_cta, schedule=sched)
     del args
+    free()
+
+    # K2 at recurrentgemma-9b's decode shape: one step from the carried h0,
+    # in a CUDA graph of GRAPH_CALLS launches (the entry point takes the
+    # simple kernel there; the staged one beside it), with the eager call
+    args = scan_inputs(RG_BATCH, 1, RG_W, seed=12, with_h0=True)
+    k2_kind = k2.variant(RG_BATCH, 1, RG_W)
+    eager_ms = cuda_ms(lambda: k2.rglru_scan_kernel(*args), iters=200, warmup=5)
+    graphs = {}
+    for kind in ("staged", k2_kind):
+        graphs[kind] = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graphs[kind]):
+            for _ in range(GRAPH_CALLS):
+                if kind == k2_kind:
+                    k2.rglru_scan_kernel(*args)
+                else:
+                    k2.launch(kind, *args)
+    graph_ms = {kind: [] for kind in graphs}
+    for kind in (k2_kind, "staged", "staged", k2_kind):
+        graph_ms[kind].append(cuda_ms(graphs[kind].replay, iters=10) / GRAPH_CALLS)
+    ms = min(graph_ms[k2_kind])
+    plain_ms = cuda_ms(lambda: ops.rglru_scan_ref(*args), iters=20, warmup=2)
+    flops, nbytes = 2 * RG_BATCH * RG_W, 4 * RG_BATCH * RG_W * 4     # a, b, h0 read; h written
+    b_ms, b_by = bound(flops, nbytes, fp32_peak, bw_peak)
+    print(f"[C] K2 rglru_scan decode B={RG_BATCH} S=1 W={RG_W} f32 from h0: {k2_kind} "
+          f"{', '.join(f'{t * 1e3:.2f}' for t in graph_ms[k2_kind])} us/call in a CUDA graph of "
+          f"{GRAPH_CALLS}, staged {', '.join(f'{t * 1e3:.2f}' for t in graph_ms['staged'])} us; "
+          f"{eager_ms * 1e3:.2f} us per eager call; bound {b_ms * 1e3:.3f} us ({b_by}; "
+          f"{nbytes / 1e6:.3f} MB at {bw_peak / 1e12:.2f} TB/s); plain {plain_ms * 1e3:.2f} us "
+          f"| card: {card}")
+    rec["rglru_scan"]["at_decode"] = dict(
+        variant=k2_kind, ms=ms, runs_ms=graph_ms[k2_kind], staged_ms=min(graph_ms["staged"]),
+        eager_ms=eager_ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+    del args, graphs
     free()
 
     for name, r in runs.items():
@@ -537,6 +624,8 @@ def main() -> int:
         dict(name="rglru_scan", route="cuda", source="src/repro_torch/csrc/rglru_scan.cu",
              replaces="src/repro/kernels/rglru_scan.py:27",
              launches=launches("rglru_scan"), launches_by_path=by_path("rglru_scan"),
+             launches_by_variant={kind: sum(r["k2_by_variant"][kind] for r in runs.values())
+                                  for kind in k2.ENTRIES},
              max_abs_err=k2_err, **rec["rglru_scan"]),
         dict(name="wkv6", route="cuda", source="src/repro_torch/csrc/wkv6.cu",
              replaces="src/repro/kernels/wkv6.py:27",

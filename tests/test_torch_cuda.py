@@ -210,18 +210,108 @@ def test_wkv6_rejects_misaligned_inputs(card):
         k3.wkv6_kernel(r, ok, ok, ok, torch.zeros(2, 64, device=card))
 
 
-@pytest.mark.parametrize("B,S,W,with_h0", [(2, 64, 128, False), (3, 37, 100, True),
-                                           (2, 1, 4096, True), (1, 300, 64, True)])
-def test_rglru_scan_matches_plain(card, B, S, W, with_h0):
-    g = torch.Generator(device=card).manual_seed(S)
+def _scan_inputs(card, B, S, W, seed, with_h0):
+    g = torch.Generator(device=card).manual_seed(seed)
     a = torch.rand((B, S, W), generator=g, device=card) * 0.79 + 0.2
     b = torch.randn((B, S, W), generator=g, device=card)
     h0 = torch.randn((B, W), generator=g, device=card) if with_h0 else None
-    before = k2.rglru_scan_kernel.launches
+    return a, b, h0
+
+
+def _check_scan(card, B, S, W, with_h0, seed):
+    """One call of K2 through ``ops.rglru_scan``: counted once, on the kernel
+    ``variant`` names, and equal to the plain loop bit for bit (both round
+    after the product and after the sum)."""
+    a, b, h0 = _scan_inputs(card, B, S, W, seed, with_h0)
+    kind = k2.variant(B, S, W)
+    before = dict(k2.rglru_scan_kernel.launches_by_variant)
+    total = k2.rglru_scan_kernel.launches
     got = ops.rglru_scan(a, b, h0)
     torch.cuda.synchronize()
-    assert k2.rglru_scan_kernel.launches == before + 1
-    torch.testing.assert_close(got, ops.rglru_scan_ref(a, b, h0), **TOL[torch.float32])
+    assert k2.rglru_scan_kernel.launches == total + 1
+    assert k2.rglru_scan_kernel.launches_by_variant == dict(before, **{kind: before[kind] + 1})
+    assert torch.equal(got, ops.rglru_scan_ref(a, b, h0))
+    return kind
+
+
+@pytest.mark.parametrize("B,S,W,with_h0", [(2, 64, 128, False), (3, 37, 100, True),
+                                           (2, 1, 4096, True), (1, 300, 64, True)])
+def test_rglru_scan_matches_plain(card, B, S, W, with_h0):
+    _check_scan(card, B, S, W, with_h0, seed=S)
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("W", [4, 100, 4100])   # none a multiple of the 64-channel tile
+@pytest.mark.parametrize("S", [2, 37, 64, 300, 4097])   # ragged around the 32-step blocks
+def test_rglru_scan_staged_is_bit_exact(card, S, W, with_h0, B):
+    """The staged kernel at ragged lengths and widths: the tensor maps' zero
+    fill past S and W, the 3-stage ring wrapping (S = 4097: 129 blocks), and
+    h0 present and absent."""
+    assert _check_scan(card, B, S, W, with_h0, seed=S + W + B) == "staged"
+
+
+def test_rglru_scan_serving_prefill_is_bit_exact(card):
+    """recurrentgemma-9b's prefill shape (B=2, S=4096, W=4096) on the
+    staged kernel."""
+    assert _check_scan(card, 2, 4096, 4096, False, seed=4096) == "staged"
+
+
+@pytest.mark.parametrize("B,W", [(2, 4096), (3, 100), (1, 99)])
+def test_rglru_scan_decode_step_takes_the_simple_kernel(card, B, W):
+    """S = 1 from h0 (the decode step) goes to the simple kernel."""
+    assert _check_scan(card, B, 1, W, True, seed=W) == "simple"
+
+
+@pytest.mark.parametrize("S", [37, 300])
+def test_rglru_scan_odd_width_takes_the_simple_kernel(card, S):
+    """W % 4 != 0 has no tensor map; the simple kernel takes it."""
+    assert _check_scan(card, 2, S, 99, True, seed=S) == "simple"
+
+
+@pytest.mark.parametrize("kind", ["staged", "simple"])
+@pytest.mark.parametrize("B,S,W", [(2, 300, 100), (1, 4097, 4100)])
+def test_rglru_scan_both_kernels_are_bit_exact(card, kind, B, S, W):
+    """Each kernel, launched uncounted at the shapes ``variant`` gives the
+    other or both, equals the plain loop bit for bit."""
+    a, b, h0 = _scan_inputs(card, B, S, W, seed=S, with_h0=True)
+    total = k2.rglru_scan_kernel.launches
+    got = k2.launch(kind, a, b, h0)
+    torch.cuda.synchronize()
+    assert k2.rglru_scan_kernel.launches == total
+    assert torch.equal(got, ops.rglru_scan_ref(a, b, h0))
+
+
+def test_rglru_scan_prefill_then_steps_equals_one_call(card):
+    """The serving path: a staged prefill of S steps, then 8 simple steps
+    threaded through h[:, -1], give the h of one call over S + 8 steps."""
+    B, S, W, steps = 2, 300, 4096, 8
+    a, b, _ = _scan_inputs(card, B, S + steps, W, seed=7, with_h0=False)
+    h_all = k2.rglru_scan_kernel(a, b)
+    hs = [k2.rglru_scan_kernel(a[:, :S].contiguous(), b[:, :S].contiguous())]
+    for t in range(S, S + steps):
+        hs.append(k2.rglru_scan_kernel(a[:, t:t + 1].contiguous(), b[:, t:t + 1].contiguous(),
+                                       hs[-1][:, -1].contiguous()))
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat(hs, dim=1), h_all)
+
+
+def test_rglru_schedule_keeps_the_serving_grid_resident(card):
+    """At recurrentgemma-9b's prefill (B=2, W=4096) every CTA of the staged
+    grid is resident at once: one wave."""
+    sched = k2.schedule()
+    assert sched["channels"] == k2.CHANNELS_PER_CTA
+    sms = torch.cuda.get_device_properties(card).multi_processor_count
+    assert sched["ctas_per_sm"] * sms >= k2.grid(2, 4096)
+
+
+def test_rglru_scan_rejects_misaligned_inputs(card):
+    buf = torch.zeros(1 * 4 * 8 + 1, device=card)
+    a = buf[1:].view(1, 4, 8)          # contiguous, 4 bytes past a boundary
+    ok = torch.zeros(1, 4, 8, device=card)
+    assert k2.variant(1, 4, 8) == "staged"
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        k2.rglru_scan_kernel(a, ok)
 
 
 def test_recurrence_wrappers_reject_bad_inputs(card):
