@@ -54,7 +54,27 @@ script.  Phases, each raising on failure (nothing is caught):
          staged kernel's compiled schedule; K2 and K3 also at their decode
          shapes (S = 1 from h0, T = 1 from a state; device time over a CUDA
          graph, since an eager call costs the host more), with K3's grid and
-         compiled schedule (CTAs resident per SM) printed.
+         compiled schedule (CTAs resident per SM) printed;
+  D      training, which runs none of the kernels (they have no backward; the
+         reference trains through its plain forms too):
+           1. one train step of the reduced yi-34b (d_model 256) on the card
+              and on the CPU from the same seeded weights, fp32 compute, TF32
+              off: loss and grad_norm agree within 1e-4 relative;
+           2. ``repro_torch.launch.train.run`` (what ``main`` runs) on the
+              command line ``--arch yi-34b --full-width --layers 4 --batch 2
+              --seq 2048 --steps 6 --analyze-every 3 --policies all``
+              (published widths, fp32 parameters and AdamW state, bf16
+              compute; cut to 2 layers, and said so, if 4 do not fit) with
+              every kernel's launch count set to 0 just before and required
+              to be 0 just after; every loss and grad_norm finite, two
+              analysis windows that name their regions; printed: warm step
+              time (median and range of steps 2-6, CUDA events), tokens/s,
+              model FLOP/s and their share of the bf16 peak, AdamW's share of
+              the step, peak memory;
+           3. checkpoints at reduced width: a run saves at step 2 through
+              ``AsyncCheckpointer``; the arrays restored onto the card equal
+              the saved ones bit for bit; ``--resume`` to step 4 gives the
+              losses of an uninterrupted 4-step run within 1e-5 relative.
 
 The last lines are the card's name and power limit, one JSON line of kernel
 records, and the verdict ``{"ok": true, "device": {...}}``.
@@ -64,8 +84,11 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import math
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -79,6 +102,12 @@ H, KH, DH = 56, 8, 128           # yi-34b attention widths
 RG_H, RG_KH, RG_DH, RG_WINDOW, RG_W = 16, 1, 256, 2048, 4096   # recurrentgemma-9b
 RWKV_H, RWKV_DH = 40, 64         # rwkv6-3b heads
 GRAPH_CALLS = 50                 # K2 or K3 launches per CUDA graph at the decode shape
+TRAIN_LAYERS, TRAIN_FALLBACK_LAYERS = 4, 2
+TRAIN_ARGV = ["--arch", "yi-34b", "--full-width", "--batch", "2", "--seq", "2048",
+              "--steps", "6", "--analyze-every", "3", "--policies", "all"]
+TRAIN_SMALL = ["--arch", "yi-34b", "--d-model", "256", "--batch", "2", "--seq", "128"]
+TRAIN_RTOL = 1e-4                # card against CPU, one fp32 step
+RESUME_RTOL = 1e-5               # resumed against uninterrupted losses
 TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2), "float32": dict(rtol=1e-5, atol=1e-5)}
 LOGITS_TOL = dict(rtol=5e-2, atol=1e-1)   # bf16 model, as the JAX package's
                                           # prefill/decode consistency test
@@ -360,6 +389,146 @@ def serve_model(torch, cfg, batch, prompt, counters, expected):
     return out
 
 
+def phase_d_card_vs_cpu(torch, dev):
+    """D.1: one train step of the reduced yi-34b on the card and on the CPU
+    from the same seeded weights, fp32 compute, TF32 off."""
+    from repro_torch.launch import steps, train
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(train.build_config(train.parse_args(TRAIN_SMALL)),
+                              compute_dtype="float32")
+    opt = adamw.AdamWConfig(lr=3e-4, warmup_steps=5, decay_steps=10)
+    g = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 129), generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    got = {}
+    for where in ("cpu", dev):
+        state = steps.init_state(cfg, opt, seed=0)            # drawn on the CPU
+        state["params"].to(where)
+        state["opt"] = adamw.init(dict(state["params"].named_parameters()), opt)
+        _, m = steps.make_train_step(cfg, opt)(state, {k: v.to(where) for k, v in batch.items()})
+        got[str(where)] = (float(m["loss"]), float(m["grad_norm"]))
+    (l_cpu, n_cpu), (l_gpu, n_gpu) = got["cpu"], got[str(dev)]
+    gaps = abs(l_gpu - l_cpu) / abs(l_cpu), abs(n_gpu - n_cpu) / abs(n_cpu)
+    print(f"[D] reduced yi-34b (d_model {cfg.d_model}, {cfg.n_layers} layers) one fp32 train "
+          f"step: loss card {l_gpu:.7f} cpu {l_cpu:.7f}, grad_norm card {n_gpu:.7f} cpu "
+          f"{n_cpu:.7f}; relative gaps {gaps[0]:.2e}, {gaps[1]:.2e} (tolerance {TRAIN_RTOL})")
+    if max(gaps) > TRAIN_RTOL:
+        raise RuntimeError(f"card and CPU train steps disagree: {got}")
+    return gaps
+
+
+def model_flops(cfg, batch, seq):
+    """(FLOPs of one train step as counted, the count in words): 6 x the
+    matmul parameters (every weight matrix, the logits included, the
+    embedding lookup not) x tokens, plus 12 x B x S^2 x H x dh per layer for
+    QK^T and PV forward and backward over the full S x S scores the plain
+    attention computes; the remat recompute is not counted."""
+    d, H, K, dh, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_ff
+    per_layer = d * H * dh + 2 * d * K * dh + H * dh * d + 3 * d * f
+    n_matmul = cfg.n_layers * per_layer + d * cfg.vocab_size
+    tokens = batch * seq
+    attn = 12 * cfg.n_layers * batch * seq * seq * H * dh
+    return 6 * n_matmul * tokens + attn, (
+        f"6 x {n_matmul / 1e9:.3f} B matmul parameters x {tokens} tokens + "
+        f"12 x L x B x S^2 x H x dh attention = {6 * n_matmul * tokens / 1e12:.2f} + "
+        f"{attn / 1e12:.2f} TFLOP")
+
+
+def phase_d_full_width(torch, dev, counters, card, bf16_peak):
+    """D.2: the trainer at yi-34b's published widths, no kernel launched."""
+    from repro_torch.launch import train
+
+    def attempt(layers):
+        for fn in counters.values():
+            fn.launches = 0
+        res = train.run(TRAIN_ARGV + ["--layers", str(layers)])
+        return res, {name: fn.launches for name, fn in counters.items()}
+
+    layers, cut = TRAIN_LAYERS, ""
+    try:
+        res, launches = attempt(layers)
+    except torch.cuda.OutOfMemoryError as e:
+        free()
+        cut = (f" (cut from {TRAIN_LAYERS} layers, which did not fit: "
+               f"{str(e).splitlines()[0]})")
+        layers = TRAIN_FALLBACK_LAYERS
+        res, launches = attempt(layers)
+    print(f"[D] yi-34b full width x{layers} layers{cut}: kernel launches {launches} "
+          f"(all must be 0)")
+    if any(launches.values()):
+        raise RuntimeError(f"training launched kernels: {launches}")
+    bad = [x for x in res.losses + res.grad_norms if not math.isfinite(x)]
+    if bad or len(res.losses) != 6:
+        raise RuntimeError(f"losses {res.losses}, grad norms {res.grad_norms}")
+    windows = res.report.windows
+    if len(windows) != 2:
+        raise RuntimeError(f"{len(windows)} analysis windows, expected 2")
+    for w in windows:
+        named = [res.tree.name(r) for r in w.report.internal.cccrs]
+        if w.failed or not named:
+            raise RuntimeError(f"window {w.title()} failed or names no region")
+        print(f"[D] window {w.title()}: internal bottlenecks {named}")
+    warm = res.step_ms[1:]
+    med = statistics.median(warm)
+    adam = statistics.median(res.adamw_ms[1:])
+    flops, how = model_flops(res.cfg, 2, 2048)
+    rate = flops / (med / 1e3)
+    print(f"[D] losses {[round(x, 4) for x in res.losses]}, grad norms "
+          f"{[round(x, 4) for x in res.grad_norms]}")
+    print(f"[D] warm step (steps 2-6, CUDA events): median {med:.3f} ms, range "
+          f"{min(warm):.3f}-{max(warm):.3f} ms; {res.tokens_per_step / (med / 1e3):.1f} tokens/s "
+          f"| card: {card}")
+    print(f"[D] model FLOP/s {rate / 1e12:.1f} TFLOP/s = {100 * rate / bf16_peak:.1f} % of "
+          f"{bf16_peak / 1e12:.0f} TFLOP/s bf16 ({how} per step); AdamW {adam:.3f} ms = "
+          f"{100 * adam / med:.1f} % of the step; peak memory "
+          f"{res.peak_bytes / 1e9:.2f} GB | card: {card}")
+    out = dict(layers=layers, step_ms=res.step_ms, median_ms=med, adamw_ms=adam,
+               tokens_s=res.tokens_per_step / (med / 1e3), tflops=rate / 1e12,
+               peak_gb=res.peak_bytes / 1e9, losses=res.losses)
+    del res
+    free()
+    return out
+
+
+def phase_d_checkpoint(torch, dev):
+    """D.3: save at step 2 (AsyncCheckpointer), restore onto the card bit for
+    bit, resume to step 4 against an uninterrupted run."""
+    import numpy as np
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.launch import steps, train
+    from repro_torch.optim import adamw
+
+    with tempfile.TemporaryDirectory(dir=SRC.parent) as tmp:
+        first = train.run(TRAIN_SMALL + ["--steps", "2", "--ckpt-dir", tmp,
+                                         "--ckpt-every", "2", "--analyze-every", "2"])
+        saved = steps.state_tree(first.state)
+        fresh = steps.init_state(first.cfg, adamw.AdamWConfig(), seed=1, device=dev)
+        tree, manifest = ckpt.restore(tmp, {"state": steps.state_tree(fresh)})
+        steps.load_state_tree(fresh, tree["state"])
+        back = steps.state_tree(fresh)
+
+        def leaves(t, pre=""):
+            for k, v in t.items():
+                yield from (leaves(v, f"{pre}{k}/") if isinstance(v, dict) else [(pre + k, v)])
+
+        a, b = dict(leaves(saved)), dict(leaves(back))
+        diff = [k for k in a if a[k].dtype != b[k].dtype or not np.array_equal(a[k], b[k])]
+        if set(a) != set(b) or diff or manifest["step"] != 2:
+            raise RuntimeError(f"restored arrays differ from the saved ones: {diff[:5]}")
+        resumed = train.run(TRAIN_SMALL + ["--steps", "4", "--ckpt-dir", tmp,
+                                           "--analyze-every", "2", "--resume"])
+    whole = train.run(TRAIN_SMALL + ["--steps", "4", "--analyze-every", "2"])
+    gaps = [abs(x - y) / abs(y) for x, y in zip(resumed.losses, whole.losses[2:])]
+    print(f"[D] checkpoint: {len(a)} arrays ({manifest['total_bytes'] / 1e6:.1f} MB) restored "
+          f"onto the card bit for bit; resumed losses {resumed.losses} vs uninterrupted "
+          f"{whole.losses[2:]}: relative gaps {[f'{g:.1e}' for g in gaps]} (tolerance "
+          f"{RESUME_RTOL})")
+    if resumed.start_step != 2 or len(gaps) != 2 or max(gaps) > RESUME_RTOL:
+        raise RuntimeError("the resumed run does not continue the uninterrupted one")
+    return max(gaps)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -609,6 +778,13 @@ def main() -> int:
               f"with the plain forms (CUDA events); decode {r['tok_s']:.1f} tok/s; peak "
               f"memory {r['peak_gb']:.1f} GB | card: {card}")
     print(f"[C] smoke ran {time.perf_counter() - t_start:.1f} s after the card check")
+
+    # -- D: training (no kernel on this path) -------------------------------------------
+    free()
+    phase_d_card_vs_cpu(torch, dev)
+    phase_d_full_width(torch, dev, counters, card, bf16_peak)
+    phase_d_checkpoint(torch, dev)
+    print(f"[D] passed; smoke ran {time.perf_counter() - t_start:.1f} s after the card check")
 
     def launches(name):
         return sum(r["launches"][name] for r in runs.values())

@@ -6,6 +6,7 @@ name in their imports; the serving loop drives them through
 """
 from .analyzer import AnalysisReport, Measurements
 from .external import ExternalReport
+from .journal import JournalError, WindowJournal
 from .pipeline import AsyncAnalysisSession
 from .policy import PolicyEngine, make_policies
 from .regions import ROOT_ID, RegionTree
@@ -13,6 +14,7 @@ from .session import AnalysisSession, SessionReport, WindowEntry
 
 __all__ = [
     "AnalysisReport", "AnalysisSession", "AsyncAnalysisSession",
-    "ExternalReport", "Measurements", "PolicyEngine", "ROOT_ID",
-    "RegionTree", "SessionReport", "WindowEntry", "make_policies",
+    "ExternalReport", "JournalError", "Measurements", "PolicyEngine", "ROOT_ID",
+    "RegionTree", "SessionReport", "WindowEntry", "WindowJournal",
+    "make_policies",
 ]

@@ -9,9 +9,12 @@ and mirror the reference's numerics: fp32 norm math with ``1 + scale``,
 weights cast to the input's dtype, the embedding scaled in the compute
 dtype, fp32 logits.
 
-``mha`` is the plain attention (the CPU path and the oracle of the
-attention kernel); it never pads heads, which the reference does only to
-make the head count divide a TPU mesh axis — zero heads change no output.
+``mha`` is the plain attention (the CPU path, the oracle of the attention
+kernel, and what training runs under autograd, as the reference trains
+with its jnp ``mha``); it never pads heads, which the reference does only
+to make the head count divide a TPU mesh axis — zero heads change no
+output.  ``attention_block`` is the training block: projections, rope,
+``mha``, out-projection.
 """
 from __future__ import annotations
 
@@ -21,6 +24,7 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 NEG_INF = -1e30
 
@@ -167,12 +171,17 @@ def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         causal: bool = True, window: int = 0, softcap: float = 0.0,
         q_offset: int = 0, k_len: Optional[int] = None,
-        scale: Optional[float] = None, q_chunk: int = 512) -> torch.Tensor:
+        scale: Optional[float] = None, q_chunk: int = 512,
+        pad_heads: int = 0) -> torch.Tensor:
     """Grouped-query attention with bounded-memory q-chunking.
 
     q: (B, Sq, H, dh); k, v: (B, Sk, K, dh) with H % K == 0.  ``q_offset``:
     absolute position of q[0]; ``k_len``: valid KV length; ``window`` > 0
-    restricts attention to the last ``window`` positions."""
+    restricts attention to the last ``window`` positions.  ``pad_heads`` is
+    accepted for the reference's signature and ignored: its padded heads
+    are zeros sliced off before the out-projection, so the result is the
+    same without them.  Under autograd each q-chunk is checkpointed, as the
+    reference's are, so only one chunk's fp32 scores live in the backward."""
     B, Sq, H, dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
     G = H // K
@@ -184,7 +193,8 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     k_pos = torch.arange(Sk, device=q.device)
     kf = k.float()
 
-    def block(qc: torch.Tensor, q_pos: torch.Tensor) -> torch.Tensor:
+    def block(qc: torch.Tensor, q_pos: torch.Tensor, kf: torch.Tensor,
+              v: torch.Tensor) -> torch.Tensor:
         s = torch.einsum("bqhd,bshd->bhqs", qc.float(), kf)
         s = _softcap(s, softcap)
         mask = torch.ones((qc.shape[1], Sk), dtype=torch.bool, device=q.device)
@@ -198,11 +208,35 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         p = torch.softmax(s, dim=-1)
         return torch.einsum("bhqs,bshd->bqhd", p.to(v.dtype), v)
 
-    outs = [block(q[:, c:c + q_chunk],
-                  q_offset + torch.arange(c, min(c + q_chunk, Sq),
-                                          device=q.device))
+    if Sq > q_chunk and torch.is_grad_enabled():
+        def chunk_fn(*args):
+            return checkpoint(block, *args, use_reentrant=False)
+    else:
+        chunk_fn = block
+    outs = [chunk_fn(q[:, c:c + q_chunk],
+                     q_offset + torch.arange(c, min(c + q_chunk, Sq),
+                                             device=q.device), kf, v)
             for c in range(0, Sq, q_chunk)]
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+
+
+def attention_block(p: Attention, x: torch.Tensor, cfg, *,
+                    positions: torch.Tensor, window: int = 0,
+                    causal: bool = True) -> torch.Tensor:
+    """Projection + attention (plain ``mha``) + out-projection: the
+    training block.  Cross-attention (``encoder_out``) lands with the
+    encoder-decoder slice."""
+    B, S, _ = x.shape
+    H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    q = apply_linear(p.wq, x).reshape(B, S, H, dh)
+    k = apply_linear(p.wk, x).reshape(B, S, K, dh)
+    v = apply_linear(p.wv, x).reshape(B, S, K, dh)
+    if cfg.use_rope:
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+    out = mha(q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap,
+              scale=cfg.query_scale, pad_heads=cfg.pad_heads)
+    return apply_linear(p.wo, out.reshape(B, S, H * dh))
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
-"""Model API of the port: parameters, init, prefill and decode.
+"""Model API of the port: parameters, init, loss, prefill and decode.
 
 Counterpart of ``repro/models/model.py`` for decoder-only models (dense,
-hybrid RG-LRU and RWKV-6 stacks).
+hybrid RG-LRU and RWKV-6 stacks).  ``forward`` / ``chunked_loss`` /
+``loss_fn`` are the training path under autograd;
 ``Model.prefill`` / ``Model.decode_step`` mirror ``prefill`` /
 ``decode_step`` of the reference; ``init_params`` draws every parameter
 from one ``torch.Generator`` with the reference's init rules (normal times
@@ -11,16 +12,19 @@ parameters across with ``models.params.from_jax_params`` instead.
 """
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import Dict, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .config import ModelConfig
 from .layers import (Embed, Linear, Norm, apply_embed, apply_logits,
                      apply_norm, sinusoidal, torch_dtype)
-from .transformer import (KERNELS, Block, Cache, Kernels, block_decode,
-                          block_forward)
+from .transformer import (KERNELS, Block, Cache, Kernels, run_stack,
+                          run_stack_decode, run_stack_prefill)
+
+LOSS_CHUNK = 512  # sequence-chunked cross-entropy (bounds logits memory)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -59,15 +63,9 @@ class Model(nn.Module):
         cache with ``s_buf`` slots per attention layer).  ``kernels``:
         ``transformer.KERNELS`` (the serving path) or ``PLAIN``."""
         cfg = self.cfg
-        x = apply_embed(self.embed, tokens, cfg)
-        S = tokens.shape[1]
-        if not cfg.use_rope:
-            x = x + sinusoidal(S, cfg.d_model, device=x.device).to(x.dtype)[None]
-        pos = torch.arange(S, device=tokens.device)
-        cache: Cache = []
-        for layer in self.layers:
-            x, c = block_forward(layer.kind, layer, x, cfg, pos, s_buf, kernels)
-            cache.append(c)
+        x = _embed_inputs(self, tokens)
+        pos = torch.arange(tokens.shape[1], device=tokens.device)
+        x, cache = run_stack_prefill(self.layers, x, cfg, pos, s_buf, kernels)
         x = apply_norm(self.final_norm, x, cfg.norm)
         return apply_logits(self.logits, self.embed, x[:, -1:], cfg), cache
 
@@ -81,10 +79,66 @@ class Model(nn.Module):
         x = apply_embed(self.embed, tokens, cfg)
         if not cfg.use_rope:
             x = x + _sin_at(pos, cfg.d_model, x.device).to(x.dtype)[None, None]
-        for layer, c in zip(self.layers, cache):
-            x, _ = block_decode(layer.kind, layer, x, c, cfg, pos, kernels)
+        x, cache = run_stack_decode(self.layers, cache, x, cfg, pos, kernels)
         x = apply_norm(self.final_norm, x, cfg.norm)
         return apply_logits(self.logits, self.embed, x, cfg), cache
+
+
+def _embed_inputs(model: Model, tokens: torch.Tensor) -> torch.Tensor:
+    cfg = model.cfg
+    x = apply_embed(model.embed, tokens, cfg)
+    if not cfg.use_rope:
+        x = x + sinusoidal(tokens.shape[1], cfg.d_model,
+                           device=x.device).to(x.dtype)[None]
+    return x
+
+
+# ---------------------------------------------------------------------------
+# Forward / loss (training, under autograd)
+# ---------------------------------------------------------------------------
+
+def forward(model: Model, tokens: torch.Tensor, remat: bool = True) -> torch.Tensor:
+    """Final hidden states (B, S, d); the logits are computed chunked
+    inside the loss to bound memory."""
+    x = _embed_inputs(model, tokens)
+    pos = torch.arange(tokens.shape[1], device=tokens.device)
+    x = run_stack(model.layers, x, model.cfg, pos, remat=remat)
+    return apply_norm(model.final_norm, x, model.cfg.norm)
+
+
+def chunked_loss(model: Model, hidden: torch.Tensor,
+                 labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy with sequence-chunked logits: the (B, S, V)
+    logits are never materialized; each chunk's are recomputed in the
+    backward (checkpointed)."""
+    cfg = model.cfg
+    B, S, d = hidden.shape
+    n = max(S // min(LOSS_CHUNK, S), 1)
+    if S % n:
+        raise ValueError(f"sequence length {S} does not split into {n} "
+                         "equal loss chunks")
+    c = S // n
+
+    def chunk_nll(h: torch.Tensor, lab: torch.Tensor) -> torch.Tensor:
+        logits = apply_logits(model.logits, model.embed, h, cfg)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, lab[..., None].long())[..., 0]
+        return torch.sum(lse - gold)
+
+    total = hidden.new_zeros((), dtype=torch.float32)
+    for i in range(n):
+        total = total + checkpoint(chunk_nll, hidden[:, i * c:(i + 1) * c],
+                                   labels[:, i * c:(i + 1) * c],
+                                   use_reentrant=False)
+    return total / (B * S)
+
+
+def loss_fn(model: Model, batch: Dict[str, torch.Tensor],
+            remat: bool = True) -> torch.Tensor:
+    """Next-token cross-entropy of ``batch`` ({"tokens", "labels"}: (B, S)
+    integer tensors)."""
+    hidden = forward(model, batch["tokens"], remat=remat)
+    return chunked_loss(model, hidden, batch["labels"])
 
 
 def _sin_at(pos: int, d: int, device) -> torch.Tensor:

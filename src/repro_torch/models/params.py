@@ -1,4 +1,4 @@
-"""Carry the JAX package's parameters into the port.
+"""Carry parameters between the JAX package's layout and the port's.
 
 The reference keeps parameters as a pytree whose transformer layers are
 stacked on a leading axis per group (``groups/<g>/pos<i>/...``); its
@@ -8,11 +8,15 @@ takes such a flat ``{keypath: numpy array}`` mapping, unstacks the layer
 axis, and loads each slice into the port's module of the same name.  No
 array is transposed: the port keeps the reference's ``(d_in, d_out)``
 weight layout.  Arrays of numpy's ``bfloat16`` extension dtype are taken
-bit for bit.
+bit for bit.  :func:`to_jax_params` is the inverse: it restacks the port's
+layers by group into the reference's keypaths, which is what makes the two
+packages' checkpoints interchangeable; ``to_jax_layout`` /
+``from_jax_layout`` do the same for any mapping keyed like the model's
+parameters (the optimizer's moments).
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Union
+from typing import Dict, Mapping, Tuple, Union
 
 import numpy as np
 import torch
@@ -38,20 +42,63 @@ def _port_name(keypath: str, layer_offset: Dict[int, int],
     return f"layers.{layer}.{rest.replace('/', '.')}"
 
 
+def _layer_index(cfg: ModelConfig) -> Dict[int, Tuple[int, int, int]]:
+    """Port layer -> (group, repetition, position in the unit)."""
+    out, start = {}, 0
+    for g, (unit, n) in enumerate(group_meta(cfg)):
+        for r in range(n):
+            for i in range(len(unit)):
+                out[start + r * len(unit) + i] = (g, r, i)
+        start += n * len(unit)
+    return out
+
+
+def _to_numpy(name: str, t: torch.Tensor) -> np.ndarray:
+    if t.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            f"{name}: bfloat16 arrays are not ported yet (numpy has no "
+            "bfloat16 without ml_dtypes, which the port does not use)")
+    return t.detach().to("cpu", copy=True).numpy()
+
+
 @torch.no_grad()
-def from_jax_params(cfg: ModelConfig, flat: Mapping[str, np.ndarray],
-                    device: Union[str, torch.device] = "cpu") -> Model:
-    """A ``Model`` holding the reference's parameters (flattened by
-    checkpoint keypath, e.g. ``groups/0/pos0/attn/wq/w`` of shape
-    ``(n, d_model, H*dh)``).  Raises on a missing, extra or misshapen key."""
-    model = Model(cfg, device)
-    params = model.state_dict(keep_vars=True)
+def to_jax_layout(cfg: ModelConfig,
+                  named: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
+    """``{port parameter name: tensor}`` -> ``{reference keypath: numpy
+    array}``, the layers of each group stacked on a leading axis
+    (``layers.3.attn.wq.w`` -> ``groups/0/pos0/attn/wq/w[3]``).  Arrays are
+    copies.  A bfloat16 tensor raises ``NotImplementedError``."""
+    index = _layer_index(cfg)
+    stacks: Dict[str, Dict[int, torch.Tensor]] = {}
+    flat: Dict[str, np.ndarray] = {}
+    for name, t in named.items():
+        if name.startswith("layers."):
+            _, layer, rest = name.split(".", 2)
+            g, r, i = index[int(layer)]
+            key = f"groups/{g}/pos{i}/{rest.replace('.', '/')}"
+            stacks.setdefault(key, {})[r] = t
+        else:
+            flat[name.replace(".", "/")] = _to_numpy(name, t)
+    for key, reps in stacks.items():
+        flat[key] = _to_numpy(key, torch.stack([reps[r] for r in range(len(reps))]))
+    return flat
+
+
+def to_jax_params(model: Model) -> Dict[str, np.ndarray]:
+    """The model's parameters as the reference's flat ``{keypath: numpy
+    array}`` (the inverse of :func:`from_jax_params`)."""
+    return to_jax_layout(model.cfg, model.state_dict())
+
+
+def from_jax_layout(cfg: ModelConfig, flat: Mapping[str, np.ndarray]
+                    ) -> Dict[str, torch.Tensor]:
+    """``{reference keypath: array}`` -> ``{port parameter name: tensor}``
+    (CPU tensors; stacked layers split apart)."""
     layer_offset, unit_len, n_reps, start = {}, {}, {}, 0
     for g, (unit, n) in enumerate(group_meta(cfg)):
         layer_offset[g], unit_len[g], n_reps[g] = start, len(unit), n
         start += n * len(unit)
-
-    loaded = set()
+    out: Dict[str, torch.Tensor] = {}
     for key, arr in flat.items():
         t = _to_tensor(arr)
         if key.startswith("groups/"):
@@ -59,20 +106,40 @@ def from_jax_params(cfg: ModelConfig, flat: Mapping[str, np.ndarray],
             if t.shape[0] != n_reps[g]:
                 raise ValueError(f"{key}: leading axis {t.shape[0]} != "
                                  f"{n_reps[g]} stacked layers")
-            pairs = [(_port_name(key, layer_offset, unit_len, r), t[r])
-                     for r in range(n_reps[g])]
+            for r in range(n_reps[g]):
+                out[_port_name(key, layer_offset, unit_len, r)] = t[r]
         else:
-            pairs = [(key.replace("/", "."), t)]
-        for name, value in pairs:
-            if name not in params:
-                raise KeyError(f"{key}: no parameter {name!r} in the port")
-            dst = params[name]
-            if tuple(dst.shape) != tuple(value.shape):
-                raise ValueError(f"{key}: shape {tuple(value.shape)} != "
-                                 f"{tuple(dst.shape)} of {name}")
-            dst.copy_(value.to(dst.dtype))
-            loaded.add(name)
-    missing = sorted(set(params) - loaded)
+            out[key.replace("/", ".")] = t
+    return out
+
+
+@torch.no_grad()
+def load_named(dst: Mapping[str, torch.Tensor], src: Mapping[str, torch.Tensor],
+               what: str = "the reference") -> None:
+    """Copy every tensor of ``src`` into the tensor of the same name in
+    ``dst`` (cast to its dtype).  Raises on a missing, extra or misshapen
+    name."""
+    loaded = set()
+    for name, value in src.items():
+        if name not in dst:
+            raise KeyError(f"{name}: no parameter {name!r} in the port")
+        target = dst[name]
+        if tuple(target.shape) != tuple(value.shape):
+            raise ValueError(f"{name}: shape {tuple(value.shape)} != "
+                             f"{tuple(target.shape)} of {name}")
+        target.copy_(value.to(target.dtype))
+        loaded.add(name)
+    missing = sorted(set(dst) - loaded)
     if missing:
-        raise KeyError(f"parameters absent from the reference: {missing}")
+        raise KeyError(f"parameters absent from {what}: {missing}")
+
+
+@torch.no_grad()
+def from_jax_params(cfg: ModelConfig, flat: Mapping[str, np.ndarray],
+                    device: Union[str, torch.device] = "cpu") -> Model:
+    """A ``Model`` holding the reference's parameters (flattened by
+    checkpoint keypath, e.g. ``groups/0/pos0/attn/wq/w`` of shape
+    ``(n, d_model, H*dh)``).  Raises on a missing, extra or misshapen key."""
+    model = Model(cfg, device)
+    load_named(model.state_dict(keep_vars=True), from_jax_layout(cfg, flat))
     return model

@@ -25,8 +25,9 @@ SRC = Path(__file__).resolve().parent.parent / "src"
 COPIED = [f"core/{m}.py" for m in (
     "regions", "vectors", "optics", "kmeans", "_reference", "roughset",
     "external", "internal", "analyzer", "diagnosis", "session", "pipeline",
-    "policy")] + [f"perfdbg/{m}.py" for m in (
-        "schema", "recorder", "instrument", "straggler")] + ["models/config.py"]
+    "policy", "journal")] + [f"perfdbg/{m}.py" for m in (
+        "schema", "recorder", "instrument", "straggler", "costs")] + [
+    "models/config.py", "data/pipeline.py"]
 IMPORT = re.compile(r"^(\s*from )repro\.", re.M)
 
 M, WINDOWS = 8, 5

@@ -321,3 +321,33 @@ def test_recurrence_wrappers_reject_bad_inputs(card):
     r = torch.zeros(1, 4, 2, 48, device=card)
     with pytest.raises(ValueError, match="head dim"):
         k3.wkv6_kernel(r, r, r, r, torch.zeros(2, 48, device=card))
+
+
+@pytest.mark.parametrize("arch", ["yi-34b", "rwkv6-3b", "recurrentgemma-9b"])
+def test_train_step_on_card_launches_no_kernel(card, arch):
+    """One reduced train step on the card, against the same step on the CPU
+    from the same weights (fp32 compute, TF32 off): training runs the plain
+    forms, so no kernel counter moves (the kernels have no backward)."""
+    import dataclasses
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(reduced_config(arch), compute_dtype="float32")
+    opt = adamw.AdamWConfig(lr=1e-3, warmup_steps=1)
+    g = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 33), generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    metrics = {}
+    counters = (fa.flash_attention, k2.rglru_scan_kernel, k3.wkv6_kernel)
+    before = [fn.launches for fn in counters]
+    for dev in ("cpu", card):
+        state = steps.init_state(cfg, opt, seed=0)
+        state["params"].to(dev)
+        state["opt"] = adamw.init(dict(state["params"].named_parameters()), opt)
+        _, m = steps.make_train_step(cfg, opt)(
+            state, {k: v.to(dev) for k, v in batch.items()})
+        metrics[str(dev)] = (float(m["loss"]), float(m["grad_norm"]))
+    assert [fn.launches for fn in counters] == before
+    (l0, n0), (l1, n1) = metrics.values()
+    assert l1 == pytest.approx(l0, rel=1e-4) and n1 == pytest.approx(n0, rel=1e-4)

@@ -38,7 +38,8 @@ def test_import_loads_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", PROBE], env=env, check=True,
                          capture_output=True, text=True, timeout=300)
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "repro_torch.launch.serve" in got["modules"]
+    for name in ("launch.serve", "launch.train", "optim.adamw", "ckpt.checkpoint"):
+        assert f"repro_torch.{name}" in got["modules"]
     for name in ("flash_attention", "rglru_scan", "wkv6"):
         assert f"repro_torch.kernels.{name}" in got["modules"]
     assert "repro_torch.models.rwkv6" in got["modules"]
