@@ -24,10 +24,10 @@ Training runs the plain forms the reference trains with; none of the
 port's kernels (which have no backward) is launched.
 
 Not ported yet, each refused with an error naming its slice:
-``--pod-gather`` and ``--chaos-seed`` (``launch/collect`` and
-``perfdbg/chaos``), ``--costs hlo`` (per-region costs measured with
-``torch.utils.flop_counter``), ``--diagnosis learned`` (a jax-free
-``perfdbg/corpus.fit_learned``).
+``--pod-gather``, and ``--chaos-seed`` with ``--chaos-hosts``
+(``launch/collect`` and ``perfdbg/chaos``), ``--costs hlo`` (per-region
+costs measured with ``torch.utils.flop_counter``), ``--diagnosis learned``
+(a jax-free ``perfdbg/corpus.fit_learned``).
 """
 from __future__ import annotations
 
@@ -60,8 +60,8 @@ from repro_torch.perfdbg.schema import SUM
 NOT_PORTED = {
     "pod_gather": "--pod-gather needs launch/collect, not ported yet "
                   "(ROADMAP section 1.10)",
-    "chaos_seed": "--chaos-seed needs perfdbg/chaos, not ported yet "
-                  "(ROADMAP section 1.13)",
+    "chaos_seed": "--chaos-seed and --chaos-hosts need perfdbg/chaos, not "
+                  "ported yet (ROADMAP section 1.13)",
     "costs_hlo": "--costs hlo (per-region costs measured on the step) is not "
                  "ported yet (ROADMAP section 1.7); pass --costs analytic",
     "learned": "--diagnosis learned needs a jax-free perfdbg/corpus."
@@ -223,7 +223,7 @@ def parse_args(argv=None):
     ap.add_argument("--supervised", action="store_true",
                     help="contain analysis failures: a window whose "
                          "analysis raises is tombstoned as a FAILED entry "
-                         "and the run continues (implied by --chaos-seed)")
+                         "and the run continues")
     ap.add_argument("--escalate-after", type=int, default=3,
                     help="under --supervised: consecutive failed windows "
                          "before the crash is considered real and re-raised")
@@ -232,14 +232,10 @@ def parse_args(argv=None):
                          "crash-safe journal (core.journal.replay rebuilds "
                          "the byte-identical report after a crash)")
     ap.add_argument("--chaos-seed", type=int, default=None,
-                    help="chaos demo: shard each window into per-host "
-                         "blobs, inject seeded transport faults plus a "
-                         "forced analyzer exception, merge leniently "
-                         "(quarantining corrupt hosts), and analyze under "
-                         "supervision — the CI chaos-soak's driver mode")
-    ap.add_argument("--chaos-hosts", type=int, default=2,
-                    help="hosts to shard each window across under "
-                         "--chaos-seed (must be <= the pod rank count)")
+                    help="not ported yet: refused")
+    ap.add_argument("--chaos-hosts", type=int, default=None,
+                    help="not ported yet (used only under --chaos-seed): "
+                         "refused")
     ap.add_argument("--resume", action="store_true")
     args = ap.parse_args(argv)
     if args.data_hosts > 1 and args.sim_ranks > 1:
@@ -251,7 +247,7 @@ def parse_args(argv=None):
                  f"{args.data_hosts} (every host gets at least one row)")
     if args.pod_gather:
         ap.error(NOT_PORTED["pod_gather"])
-    if args.chaos_seed is not None:
+    if args.chaos_seed is not None or args.chaos_hosts is not None:
         ap.error(NOT_PORTED["chaos_seed"])
     if args.costs == "hlo" or (args.costs is None and args.schema == "tpu"):
         ap.error(NOT_PORTED["costs_hlo"])

@@ -117,6 +117,7 @@ def test_data_hosts_reshard_actuates(capsys):
 @pytest.mark.parametrize("flags,reason", [
     (["--pod-gather"], "pod_gather"),
     (["--chaos-seed", "3"], "chaos_seed"),
+    (["--chaos-hosts", "2"], "chaos_seed"),
     (["--costs", "hlo"], "costs_hlo"),
     (["--schema", "tpu"], "costs_hlo"),
     (["--diagnosis", "learned"], "learned"),
