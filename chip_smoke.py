@@ -12,14 +12,18 @@ script.  Phases, each raising on failure (nothing is caught):
          spills for each instantiation;
   A      each kernel against its plain PyTorch version on the card, case by
          case (the tolerances of the JAX package's kernel tests: bf16 2e-2,
-         f32 1e-5, TF32 off), including each serving shape: K1 (flash
-         attention; each case prints the kernel its dtype and head size
-         choose: ``"wgmma"``, the tensor-core kernel, for bf16 at d_head 128
-         and 256, ``"simt"`` otherwise; also at d_head 256 with 16 query
-         heads on one KV head and a window), K3 (WKV6, y and the final state,
+         f32 1e-5, TF32 off): K1 (flash attention; each case prints the
+         kernel its dtype and head size choose: ``"wgmma"``, the tensor-core
+         kernel, for bf16 at d_head 128 and 256, ``"simt"`` otherwise; also
+         at d_head 256 with 16 query heads on one KV head and a window; at
+         gemma2-27b's heads, 32 on 16 KV heads with softcap 50 and query
+         scale 144^-0.5, with and without a window, and mixtral-8x7b's, 32
+         on 8 with a window, fp32 at S=1000 and window 384; K1's serving
+         shapes are checked in C), K3 (WKV6, y and the final state,
          T = 1 from a state, ragged T, d_head 32: two blocks of value columns
-         per head, with B*H = 21) and K2 (RG-LRU scan, equal to the plain
-         loop bit for bit; each case prints the kernel its shape chooses:
+         per head, with B*H = 21, and rwkv6-3b's serving shape) and K2
+         (RG-LRU scan, equal to the plain loop bit for bit, also at
+         recurrentgemma-9b's serving shape; each case prints the kernel its shape chooses:
          ``"staged"``, a and b staged by TMA, for S > 1 with W % 4 == 0,
          ``"simple"`` otherwise; from h0, S = 1, ragged S and W);
   B      the serving path, ``repro_torch.launch.serve.serve`` with all
@@ -43,12 +47,19 @@ script.  Phases, each raising on failure (nothing is caught):
          round; the prefill's last-position logits must agree with a prefill
          through the models' plain forms (``transformer.PLAIN``) on the same
          weights (bf16: rtol 5e-2, atol 1e-1 times the logits' rms where
-         that exceeds 1, as for recurrentgemma's tied embedding);
+         that exceeds 1, as for recurrentgemma's tied embedding); each
+         model prints its depth, parameters and weight bytes;
   C      CUDA-event timings at the serving shapes: each kernel, its plain
-         version, its bound and, for K1, ``F.scaled_dot_product_attention``
-         as a yardstick the port never calls (no single PyTorch call
-         computes K2's or K3's recurrence), and K1's SIMT kernel at the same
-         bf16 shapes as the time before the tensor-core kernel; K2's staged
+         version, its bound and, for K1, a library yardstick the port never
+         calls (``F.scaled_dot_product_attention``; for gemma2-27b's softcap
+         a compiled ``flex_attention``; no single PyTorch call computes K2's
+         or K3's recurrence), and K1's SIMT kernel at the same bf16 shapes as
+         the time before the tensor-core kernel; K1 also at gemma2-27b's
+         global and local and mixtral-8x7b's prefill shapes (B=2, S=8192,
+         so the 4096 window excludes pairs), with the models' q-chunked
+         plain form as the plain version there; at every K1 shape the
+         kernel's output and the yardstick's are first held against the
+         plain version's on the timed inputs (bf16 2e-2); K2's staged
          and simple kernels alternated at recurrentgemma-9b's prefill shape
          (the simple one is the time before), with TB/s, the grid and the
          staged kernel's compiled schedule; K2 and K3 also at their decode
@@ -74,7 +85,17 @@ script.  Phases, each raising on failure (nothing is caught):
            3. checkpoints at reduced width: a run saves at step 2 through
               ``AsyncCheckpointer``; the arrays restored onto the card equal
               the saved ones bit for bit; ``--resume`` to step 4 gives the
-              losses of an uninterrupted 4-step run within 1e-5 relative.
+              losses of an uninterrupted 4-step run within 1e-5 relative;
+  E      the serving path as in B on this slice's families, bf16 weights
+         from the seed, each at published widths: mixtral-8x7b (MoE, window
+         4096) cut to 16 of 32 layers, batch 2, prompt 8192; gemma2-27b at
+         full depth (46 layers: sandwich norms, softcap 50, window 4096 on
+         the local half), batch 2, prompt 8192; moonshot-v1-16b-a3b,
+         nemotron-4-15b and pixtral-12b cut to 4 layers and qwen1.5-110b to
+         2, batch 2, prompt 2048.  K1 launches once per attention layer per
+         prefill, every launch on "wgmma", K2 and K3 never; the checks of B,
+         and for pixtral-12b also a prefill with random patches, kernels
+         against the plain forms.
 
 The last lines are the card's name and power limit, one JSON line of kernel
 records, and the verdict ``{"ok": true, "device": {...}}``.
@@ -101,6 +122,14 @@ RG_BATCH, RG_PROMPT = 2, 4096
 H, KH, DH = 56, 8, 128           # yi-34b attention widths
 RG_H, RG_KH, RG_DH, RG_WINDOW, RG_W = 16, 1, 256, 2048, 4096   # recurrentgemma-9b
 RWKV_H, RWKV_DH = 40, 64         # rwkv6-3b heads
+# phase E: (arch, layers or None for full depth, batch, prompt)
+E_MODELS = (("mixtral-8x7b", 16, 2, 8192), ("gemma2-27b", None, 2, 8192),
+            ("moonshot-v1-16b-a3b", 4, 2, 2048), ("nemotron-4-15b", 4, 2, 2048),
+            ("qwen1.5-110b", 2, 2, 2048), ("pixtral-12b", 4, 2, 2048))
+E_BATCH, E_PROMPT, E_WINDOW = 2, 8192, 4096        # mixtral's and gemma2's prefill shape
+G2_H, G2_KH, G2_SOFTCAP, G2_SCALE = 32, 16, 50.0, 144.0 ** -0.5   # gemma2-27b attention
+G2_KW = dict(causal=True, softcap=G2_SOFTCAP, scale=G2_SCALE)
+MX_H, MX_KH = 32, 8              # mixtral-8x7b attention
 GRAPH_CALLS = 50                 # K2 or K3 launches per CUDA graph at the decode shape
 TRAIN_LAYERS, TRAIN_FALLBACK_LAYERS = 4, 2
 TRAIN_ARGV = ["--arch", "yi-34b", "--full-width", "--batch", "2", "--seq", "2048",
@@ -197,7 +226,8 @@ def scan_inputs(B, S, W, seed, with_h0):
 
 
 def phase_a_attention(torch, ops, fa):
-    """K1 vs plain; returns the max abs error at each serving prefill shape."""
+    """K1 vs plain, case by case (the serving shapes are checked in C, on
+    the inputs that are timed there)."""
     rg_kw = dict(causal=True, window=RG_WINDOW)
     cases = [  # name, B, S, H, KH, dh, dtype, kwargs
         ("causal yi", 2, 1024, H, KH, DH, "bfloat16", dict(causal=True)),
@@ -221,10 +251,12 @@ def phase_a_attention(torch, ops, fa):
         ("dh=256 full", 1, 333, RG_H, RG_KH, RG_DH, "bfloat16", dict(causal=False)),
         ("dh=256 causal", 2, 1000, RG_H, RG_KH, RG_DH, "bfloat16", dict(causal=True)),
         ("dh=256 S=37", 2, 37, RG_H, RG_KH, RG_DH, "bfloat16", rg_kw),
-        ("prefill yi", YI_BATCH, YI_PROMPT, H, KH, DH, "bfloat16", dict(causal=True)),
-        ("prefill rg", RG_BATCH, RG_PROMPT, RG_H, RG_KH, RG_DH, "bfloat16", rg_kw),
+        # gemma2-27b's and mixtral-8x7b's heads on the SIMT kernel (fp32), the
+        # window below S; their bf16 (wgmma) serving shapes are checked in C
+        ("gemma2 global", 2, 1000, G2_H, G2_KH, DH, "float32", G2_KW),
+        ("gemma2 local", 2, 1000, G2_H, G2_KH, DH, "float32", dict(G2_KW, window=384)),
+        ("mixtral", 2, 1000, MX_H, MX_KH, DH, "float32", dict(causal=True, window=384)),
     ]
-    errs = {}
     for i, (name, B, S, h, kh, dh, dt, kw) in enumerate(cases):
         q, k, v = qkv(B, S, h, kh, dh, getattr(torch, dt), seed=100 + i)
         kind = fa.variant(q.dtype, dh)
@@ -238,10 +270,8 @@ def phase_a_attention(torch, ops, fa):
         print(f"[A] K1 {name:14s} B={B} S={S} H={h} K={kh} dh={dh} {dt:8s} {kind:5s} "
               f"{kw}: max|err|={e:.3e} tol={TOL[dt]}")
         torch.testing.assert_close(got.float(), want.float(), **TOL[dt])
-        errs[name] = e
         del q, k, v, got, want
         free()
-    return errs["prefill yi"], errs["prefill rg"]
 
 
 def phase_a_wkv6(torch, ops, k3):
@@ -318,15 +348,32 @@ def phase_a_rglru(torch, ops, k2):
     return err
 
 
-def serve_model(torch, cfg, batch, prompt, counters, expected):
-    """Phase B for one model: serve it with every launch count set to 0
-    just before, check the counts (K2's by kernel: the prefill's staged,
-    the decode steps' simple), windows, tokens and the kernel-vs-plain
-    prefill logits; returns the counts and the timings."""
+def check_logits(torch, tag, got, plain):
+    """Kernel-path logits against the plain forms' within LOGITS_TOL, the
+    absolute part scaled by the logits' rms where it exceeds 1."""
+    lerr = (plain - got).abs().max().item()
+    agree = (plain.argmax(-1) == got.argmax(-1)).float().mean().item()
+    # tied embeddings give logits of rms ~sqrt(d_model) where untied ones
+    # have rms ~1: the absolute tolerance is taken relative to the rms
+    rms = plain.pow(2).mean().sqrt().item()
+    tol = dict(LOGITS_TOL, atol=LOGITS_TOL["atol"] * max(1.0, rms))
+    print(f"{tag}, kernels vs plain forms: max|err|={lerr:.3e} (logits rms {rms:.3f}) "
+          f"tol={tol}; greedy-token agreement {agree:.3f}")
+    torch.testing.assert_close(got, plain, **tol)
+
+
+def serve_model(torch, cfg, batch, prompt, counters, expected, phase="B", patches=False):
+    """Phase B (or E) for one model: serve it with every launch count set
+    to 0 just before, check the counts (K2's by kernel: the prefill's
+    staged, the decode steps' simple), windows, tokens and the
+    kernel-vs-plain prefill logits (with ``patches``, also of a prefill
+    with random vision-stub patches); returns the counts and the
+    timings."""
     from repro_torch.launch.serve import serve
     from repro_torch.models.transformer import PLAIN
 
-    print(f"[B] serving {cfg.name} at full width (d_model={cfg.d_model}, "
+    tag = f"[{phase}]"
+    print(f"{tag} serving {cfg.name} at full width (d_model={cfg.d_model}, "
           f"H={cfg.n_heads}, K={cfg.n_kv_heads}, d_ff={cfg.d_ff}, vocab={cfg.vocab_size}, "
           f"{cfg.n_layers} layers: {dict((k, cfg.layer_kinds.count(k)) for k in sorted(set(cfg.layer_kinds)))}); "
           f"batch {batch}, prompt {prompt}, {ROUNDS} rounds x {TOKENS} tokens")
@@ -341,9 +388,13 @@ def serve_model(torch, cfg, batch, prompt, counters, expected):
     launches = {name: fn.launches for name, fn in counters.items()}
     by_variant = dict(k1.launches_by_variant)
     k2_by_variant = dict(k2.launches_by_variant)
+    n_params = sum(p.numel() for p in res.model.parameters())
+    weight_bytes = sum(p.numel() * p.element_size() for p in res.model.parameters())
+    print(f"{tag} {cfg.name}: {cfg.n_layers} layers, {n_params / 1e9:.2f} B parameters, "
+          f"{weight_bytes / 1e9:.2f} GB of {cfg.param_dtype} weights")
     rec_layers = cfg.layer_kinds.count("rec")
     k2_expected = dict(staged=rec_layers, simple=rec_layers * ROUNDS * TOKENS)
-    print(f"[B] {cfg.name}: launches {launches}, expected {expected}; K1 by kernel "
+    print(f"{tag} {cfg.name}: launches {launches}, expected {expected}; K1 by kernel "
           f"{by_variant}; K2 by kernel {k2_by_variant}, expected {k2_expected}")
     if launches != expected:
         raise RuntimeError(f"{cfg.name}: kernel launches {launches} on the serving "
@@ -362,7 +413,7 @@ def serve_model(torch, cfg, batch, prompt, counters, expected):
         if w.failed:
             raise RuntimeError(f"analysis window {w.title()} failed")
         cccrs = [res.tree.name(r) for r in w.report.internal.cccrs]
-        print(f"[B] {cfg.name} window {w.title()}: internal bottlenecks {cccrs or ['(none)']}")
+        print(f"{tag} {cfg.name} window {w.title()}: internal bottlenecks {cccrs or ['(none)']}")
     if res.tokens.shape != (batch, 1 + ROUNDS * TOKENS):
         raise RuntimeError(f"decoded tokens have shape {res.tokens.shape}")
     if not torch.isfinite(res.prefill_logits).all():
@@ -370,23 +421,154 @@ def serve_model(torch, cfg, batch, prompt, counters, expected):
     s_buf = prompt + ROUNDS * TOKENS
     (plain_logits, _), plain_ms = timed(lambda: res.model.prefill(res.prompts, s_buf,
                                                                   kernels=PLAIN))
-    lerr = (plain_logits - res.prefill_logits).abs().max().item()
-    agree = (plain_logits.argmax(-1) == res.prefill_logits.argmax(-1)).float().mean().item()
-    # tied embeddings give logits of rms ~sqrt(d_model) where untied ones
-    # have rms ~1: the absolute tolerance is taken relative to the rms
-    rms = plain_logits.pow(2).mean().sqrt().item()
-    tol = dict(LOGITS_TOL, atol=LOGITS_TOL["atol"] * max(1.0, rms))
-    print(f"[B] {cfg.name} prefill logits, kernels vs plain forms: max|err|={lerr:.3e} "
-          f"(logits rms {rms:.3f}) tol={tol}; greedy-token agreement {agree:.3f}")
-    torch.testing.assert_close(res.prefill_logits, plain_logits, **tol)
+    check_logits(torch, f"{tag} {cfg.name} prefill logits", res.prefill_logits, plain_logits)
+    if patches:
+        g = torch.Generator(device="cuda").manual_seed(3)
+        pt = torch.randn((batch, cfg.n_patches, cfg.d_model), generator=g,
+                         device="cuda").to(torch.bfloat16)
+        with_patches, _ = res.model.prefill(res.prompts, s_buf, patches=pt)
+        plain_patches, _ = res.model.prefill(res.prompts, s_buf, kernels=PLAIN, patches=pt)
+        check_logits(torch, f"{tag} {cfg.name} prefill logits with {cfg.n_patches} random "
+                     f"patches", with_patches, plain_patches)
+        if torch.equal(with_patches, res.prefill_logits):
+            raise RuntimeError(f"{cfg.name}: the patches changed no logit")
+        del pt, with_patches, plain_patches
     del plain_logits
     warm_ms = cuda_ms(lambda: res.model.prefill(res.prompts, s_buf), iters=2, warmup=1)
-    out = dict(launches=launches, k2_by_variant=k2_by_variant,
+    out = dict(launches=launches, k2_by_variant=k2_by_variant, layers=cfg.n_layers,
+               params_b=n_params / 1e9, weight_gb=weight_bytes / 1e9,
                prefill_ms=res.prefill_s * 1e3, tok_s=res.decode_tok_s,
                warm_ms=warm_ms, plain_ms=plain_ms, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     del res
     free()
     return out
+
+
+def phase_e(torch, counters):
+    """E: this slice's families through ``serve`` at published widths, each
+    freed before the next; K1 once per attention layer per prefill, K2 and
+    K3 never."""
+    from repro_torch.configs import get_config
+
+    runs = {}
+    for arch, layers, batch, prompt in E_MODELS:
+        full = get_config(arch)
+        cfg = dataclasses.replace(full, n_layers=layers or full.n_layers,
+                                  param_dtype="bfloat16")
+        print(f"[E] {arch}: depth {cfg.n_layers} of {full.n_layers} layers, published widths")
+        attn_layers = sum(kind not in ("rec", "rwkv") for kind in cfg.layer_kinds)
+        runs[cfg.name] = serve_model(
+            torch, cfg, batch, prompt, counters,
+            {"flash_attention": attn_layers, "rglru_scan": 0, "wkv6": 0}, phase="E",
+            patches=cfg.frontend == "vision_stub")
+    return runs
+
+
+# Library yardsticks of K1, each ``(label, prepare)`` with ``prepare(q, k,
+# v) -> call`` and ``call() -> (B, H, S, dh)``; the port never calls them.
+
+def sdpa_causal(torch):
+    """Causal GQA attention: one SDPA call."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def prepare(q, k, v):
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        return lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    return "SDPA (is_causal, enable_gqa)", prepare
+
+
+def sdpa_band(torch, window):
+    """Windowed GQA attention: one SDPA call with a band mask, K/V expanded
+    to the query heads beforehand."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def prepare(q, k, v):
+        pos = torch.arange(q.shape[1], device="cuda")
+        band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
+        qt = q.transpose(1, 2)
+        kt, vt = (t.transpose(1, 2).repeat_interleave(q.shape[2] // k.shape[2], dim=1)
+                  for t in (k, v))
+        return lambda: sdpa(qt, kt, vt, attn_mask=band)
+    return f"SDPA with a {window}-wide band mask, K/V expanded", prepare
+
+
+def flex_softcap(torch, softcap, scale, window=0):
+    """gemma2's attention, softcap and all: one ``flex_attention`` call,
+    compiled by ``torch.compile`` (the eager one materializes every score),
+    with the softcap as its ``score_mod`` and the causal mask, banded to
+    ``window`` when it is set, as its block mask.  The compile's caches go
+    to the kernels' build directory."""
+    import os
+
+    from repro_torch.kernels import _build
+    for var, sub in (("TORCHINDUCTOR_CACHE_DIR", "inductor"), ("TRITON_CACHE_DIR", "triton")):
+        os.environ.setdefault(var, str(_build.BUILD_DIR / sub))
+    from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+    flex = torch.compile(flex_attention)
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return softcap * torch.tanh(score / softcap)
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        keep = q_idx >= kv_idx
+        return keep & (kv_idx > q_idx - window) if window else keep
+
+    def prepare(q, k, v):
+        mask = create_block_mask(mask_mod, None, None, q.shape[1], k.shape[1], device="cuda")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        return lambda: flex(qt, kt, vt, score_mod=score_mod, block_mask=mask, scale=scale,
+                            enable_gqa=True)
+    band = f", {window}-wide band" if window else ""
+    return f"compiled flex_attention (tanh softcap score_mod, causal{band} block mask)", prepare
+
+
+def time_k1(torch, fa, shape, kw, plain, library, rates, card, seed):
+    """C for K1 at one prefill shape ``(B, S, H, K, dh)``, bf16: the entry
+    point's kernel held against the plain version ``plain`` on the inputs
+    it is timed on (bf16 tolerance), its time, the SIMT kernel's beside it
+    (the time before wgmma), the plain version's, the bound (FLOPs of the
+    unmasked (q, k) pairs at the bf16 peak, or q, k, v and o once at HBM
+    bandwidth) and the library yardstick ``library`` (``(label,
+    prepare)``), whose output is held against the plain version too."""
+    B, S, h, kh, dh = shape
+    peak_name, bf16_peak, bw_peak = rates
+    q, k, v = qkv(B, S, h, kh, dh, torch.bfloat16, seed=seed)
+    kind = fa.variant(q.dtype, dh)
+    opts = {key: (round(val, 6) if isinstance(val, float) else val) for key, val in kw.items()}
+    want = plain(q, k, v, **kw).float()
+    got = fa.flash_attention(q, k, v, **kw).float()
+    err = (got - want).abs().max().item()
+    print(f"[C] K1 B={B} S={S} H={h} K={kh} dh={dh} bf16 {opts}: {kind} against the plain "
+          f"version: max|err|={err:.3e} tol={TOL['bfloat16']}")
+    torch.testing.assert_close(got, want, **TOL["bfloat16"])
+    lib_label, lib_prepare = library
+    call = lib_prepare(q, k, v)
+    lib_out = call().transpose(1, 2).float()
+    lib_err = (lib_out - want).abs().max().item()
+    print(f"[C] K1 yardstick {lib_label} against the plain version: max|err|={lib_err:.3e} "
+          f"tol={TOL['bfloat16']}")
+    torch.testing.assert_close(lib_out, want, **TOL["bfloat16"])
+    del got, want, lib_out
+    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **kw), iters=10)
+    simt_ms = cuda_ms(lambda: fa.launch("simt", q, k, v, **kw), iters=2, warmup=1)
+    plain_ms = cuda_ms(lambda: plain(q, k, v, **kw), iters=2, warmup=1)
+    window = kw.get("window", 0)
+    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S))
+    flops = 4 * B * h * dh * pairs
+    nbytes = 2 * (2 * B * S * h * dh + 2 * B * S * kh * dh)
+    b_ms, b_by = bound(flops, nbytes, bf16_peak, bw_peak)
+    library_ms = cuda_ms(call, iters=10)
+    print(f"[C] K1 flash_attention B={B} S={S} H={h} K={kh} dh={dh} bf16 {opts}: {kind} "
+          f"{ms:.4f} ms/call ({flops / ms / 1e9:.1f} TFLOP/s), simt {simt_ms:.4f} ms "
+          f"({flops / simt_ms / 1e9:.1f} TFLOP/s); bound {b_ms:.4f} ms ({b_by}; "
+          f"{flops / 1e9:.1f} GFLOP at {peak_name} {bf16_peak / 1e12:.0f} TFLOP/s bf16, "
+          f"{nbytes / 1e9:.3f} GB at {bw_peak / 1e12:.2f} TB/s); plain {plain_ms:.4f} ms; "
+          f"library (a yardstick the port never calls): {lib_label} {library_ms:.4f} ms "
+          f"| card: {card}")
+    del q, k, v, call
+    free()
+    return dict(variant=kind, max_abs_err=err, ms=ms, simt_ms=simt_ms, plain_ms=plain_ms,
+                bound_ms=b_ms, bound_by=b_by, library_ms=library_ms, library=lib_label)
 
 
 def phase_d_card_vs_cpu(torch, dev):
@@ -403,7 +585,7 @@ def phase_d_card_vs_cpu(torch, dev):
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     got = {}
     for where in ("cpu", dev):
-        state = steps.init_state(cfg, opt, seed=0)            # drawn on the CPU
+        state = steps.init_state(cfg, opt, seed=0, device="cpu")   # drawn on the CPU
         state["params"].to(where)
         state["opt"] = adamw.init(dict(state["params"].named_parameters()), opt)
         _, m = steps.make_train_step(cfg, opt)(state, {k: v.to(where) for k, v in batch.items()})
@@ -565,7 +747,7 @@ def main() -> int:
                 print(f"[build] {name}: {line.strip()}")
 
     # -- A: kernels vs plain -----------------------------------------------------
-    k1_err, k1_rg_err = phase_a_attention(torch, ops, fa)
+    phase_a_attention(torch, ops, fa)
     k3_err = phase_a_wkv6(torch, ops, k3)
     k2_err = phase_a_rglru(torch, ops, k2)
     print(f"[A] passed in {time.perf_counter() - t_start:.1f} s since start")
@@ -593,61 +775,33 @@ def main() -> int:
     # -- C: timings at the serving shapes ----------------------------------------------
     peak_name, (bf16_peak, fp32_peak, bw_peak) = peaks(device_kind)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     rec = {}
 
-    # K1 at yi-34b's prefill shape
-    q, k, v = qkv(YI_BATCH, YI_PROMPT, H, KH, DH, torch.bfloat16, seed=7)
-    k1_kind = fa.variant(q.dtype, DH)
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True), iters=10)
-    simt_ms = cuda_ms(lambda: fa.launch("simt", q, k, v, causal=True), iters=3, warmup=1)
-    plain_ms = cuda_ms(lambda: ops.attention_ref(q, k, v, causal=True), iters=3, warmup=1)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), iters=10)
-    pairs = YI_PROMPT * (YI_PROMPT + 1) // 2            # unmasked (q, k) pairs per head
-    flops = 4 * YI_BATCH * H * DH * pairs
-    nbytes = 2 * (2 * YI_BATCH * YI_PROMPT * H * DH + 2 * YI_BATCH * YI_PROMPT * KH * DH)
-    bound_ms, bound_by = bound(flops, nbytes, bf16_peak, bw_peak)
-    print(f"[C] K1 flash_attention B={YI_BATCH} S={YI_PROMPT} H={H} K={KH} dh={DH} bf16 causal: "
-          f"{k1_kind} {ms:.4f} ms/call ({flops / ms / 1e9:.1f} TFLOP/s), simt {simt_ms:.4f} ms "
-          f"({flops / simt_ms / 1e9:.1f} TFLOP/s); bound {bound_ms:.4f} ms "
-          f"({bound_by}; {flops / 1e9:.1f} GFLOP at {peak_name} {bf16_peak / 1e12:.0f} TFLOP/s "
-          f"bf16, {nbytes / 1e9:.3f} GB at {bw_peak / 1e12:.2f} TB/s); plain {plain_ms:.4f} ms; "
-          f"library sdpa (yardstick, not used by the port) {library_ms:.4f} ms | card: {card}")
-    rec["flash_attention"] = dict(variant=k1_kind, ms=ms, simt_ms=simt_ms, plain_ms=plain_ms,
-                                  bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-    del q, k, v, qt, kt, vt
-    free()
-
-    # K1 at recurrentgemma-9b's prefill shape (d_head 256, G 16, window 2048)
-    q, k, v = qkv(RG_BATCH, RG_PROMPT, RG_H, RG_KH, RG_DH, torch.bfloat16, seed=8)
-    rg_kw = dict(causal=True, window=RG_WINDOW)
-    k1_kind = fa.variant(q.dtype, RG_DH)
-    ms = cuda_ms(lambda: fa.flash_attention(q, k, v, **rg_kw), iters=10)
-    simt_ms = cuda_ms(lambda: fa.launch("simt", q, k, v, **rg_kw), iters=3, warmup=1)
-    plain_ms = cuda_ms(lambda: ops.attention_ref(q, k, v, **rg_kw), iters=2, warmup=1)
-    pos = torch.arange(RG_PROMPT, device="cuda")
-    band = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - RG_WINDOW)
-    qt = q.transpose(1, 2)
-    kt, vt = (t.transpose(1, 2).repeat_interleave(RG_H // RG_KH, dim=1) for t in (k, v))
-    library_ms = cuda_ms(lambda: sdpa(qt, kt, vt, attn_mask=band), iters=10)
-    pairs = sum(min(i + 1, RG_WINDOW) for i in range(RG_PROMPT))
-    flops = 4 * RG_BATCH * RG_H * RG_DH * pairs
-    nbytes = 2 * (2 * RG_BATCH * RG_PROMPT * RG_H * RG_DH + 2 * RG_BATCH * RG_PROMPT * RG_KH * RG_DH)
-    b_ms, b_by = bound(flops, nbytes, bf16_peak, bw_peak)
-    print(f"[C] K1 flash_attention B={RG_BATCH} S={RG_PROMPT} H={RG_H} K={RG_KH} dh={RG_DH} bf16 "
-          f"window {RG_WINDOW}: {k1_kind} {ms:.4f} ms/call ({flops / ms / 1e9:.1f} TFLOP/s), simt "
-          f"{simt_ms:.4f} ms ({flops / simt_ms / 1e9:.1f} TFLOP/s); bound "
-          f"{b_ms:.4f} ms ({b_by}; {flops / 1e9:.1f} GFLOP, {nbytes / 1e9:.3f} GB); plain "
-          f"{plain_ms:.4f} ms; library sdpa with a band mask on K/V expanded to {RG_H} heads "
-          f"(yardstick) {library_ms:.4f} ms "
-          f"| card: {card}")
-    rec["flash_attention"]["at_dh256"] = dict(variant=k1_kind, ms=ms, simt_ms=simt_ms,
-                                              plain_ms=plain_ms, bound_ms=b_ms,
-                                              bound_by=b_by, library_ms=library_ms,
-                                              max_abs_err=k1_rg_err)
-    del q, k, v, qt, kt, vt, band
-    free()
+    # K1 at the serving prefill shapes, each checked against its plain
+    # version on the timed inputs: yi-34b's; recurrentgemma-9b's (d_head
+    # 256, G 16, window 2048); gemma2-27b's global and local layers (softcap
+    # 50, query scale 144^-0.5, G 2) and mixtral-8x7b's (G 4, window 4096)
+    # at their served prompt of 8192, where the window excludes pairs and
+    # the models' q-chunked plain form stands in for the plain version (its
+    # fp32 scores at once would take ~17 GB)
+    from repro_torch.models.layers import mha
+    rates = (peak_name, bf16_peak, bw_peak)
+    rec["flash_attention"] = time_k1(torch, fa, (YI_BATCH, YI_PROMPT, H, KH, DH),
+                                     dict(causal=True), ops.attention_ref, sdpa_causal(torch),
+                                     rates, card, seed=7)
+    for key, shape, kw, plain, library, seed in (
+            ("at_dh256", (RG_BATCH, RG_PROMPT, RG_H, RG_KH, RG_DH),
+             dict(causal=True, window=RG_WINDOW), ops.attention_ref,
+             sdpa_band(torch, RG_WINDOW), 8),
+            ("at_gemma2_global", (E_BATCH, E_PROMPT, G2_H, G2_KH, DH), G2_KW, mha,
+             flex_softcap(torch, G2_SOFTCAP, G2_SCALE), 13),
+            ("at_gemma2_local", (E_BATCH, E_PROMPT, G2_H, G2_KH, DH),
+             dict(G2_KW, window=E_WINDOW), mha,
+             flex_softcap(torch, G2_SOFTCAP, G2_SCALE, E_WINDOW), 14),
+            ("at_mixtral", (E_BATCH, E_PROMPT, MX_H, MX_KH, DH),
+             dict(causal=True, window=E_WINDOW), mha, sdpa_band(torch, E_WINDOW), 15)):
+        rec["flash_attention"][key] = time_k1(torch, fa, shape, kw, plain, library, rates,
+                                              card, seed=seed)
 
     # K3 at rwkv6-3b's prefill shape
     args = wkv_inputs(RWKV_BATCH, RWKV_PROMPT, RWKV_H, RWKV_DH, torch.bfloat16, seed=9,
@@ -786,17 +940,29 @@ def main() -> int:
     phase_d_checkpoint(torch, dev)
     print(f"[D] passed; smoke ran {time.perf_counter() - t_start:.1f} s after the card check")
 
+    # -- E: this slice's families through the serving path ------------------------------
+    free()
+    e_runs = phase_e(torch, counters)
+    for name, r in e_runs.items():
+        print(f"[E] serving {name} ({r['layers']} layers, {r['params_b']:.2f} B parameters, "
+              f"{r['weight_gb']:.2f} GB bf16): prefill {r['prefill_ms']:.3f} ms (first call, "
+              f"host clock), warm prefill {r['warm_ms']:.3f} ms with the kernels, "
+              f"{r['plain_ms']:.3f} ms with the plain forms (CUDA events); decode "
+              f"{r['tok_s']:.1f} tok/s; peak memory {r['peak_gb']:.1f} GB | card: {card}")
+    runs.update(e_runs)
+    print(f"[E] passed; smoke ran {time.perf_counter() - t_start:.1f} s after the card check")
+
     def launches(name):
         return sum(r["launches"][name] for r in runs.values())
 
-    by_path = lambda name: {m: r["launches"][name] for m, r in runs.items() if r["launches"][name]}
+    by_path = lambda name: {m: r["launches"][name] for m, r in runs.items()}
     kernels = [
         dict(name="flash_attention", route="cuda",
              source="src/repro_torch/csrc/flash_attention_sm90.cu",
              simt_source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:35",
              launches=launches("flash_attention"), launches_by_path=by_path("flash_attention"),
-             max_abs_err=k1_err, **rec["flash_attention"]),
+             **rec["flash_attention"]),
         dict(name="rglru_scan", route="cuda", source="src/repro_torch/csrc/rglru_scan.cu",
              replaces="src/repro/kernels/rglru_scan.py:27",
              launches=launches("rglru_scan"), launches_by_path=by_path("rglru_scan"),

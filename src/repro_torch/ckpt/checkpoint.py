@@ -41,13 +41,18 @@ RESERVED_MANIFEST_KEYS = frozenset({"step", "n_arrays", "total_bytes",
                                     "time"})
 
 
+def refuse_bfloat16(key: str, leaf) -> None:
+    """Raise ``NotImplementedError`` for a bfloat16 tensor leaf."""
+    if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16:
+        raise NotImplementedError(
+            f"{key}: bfloat16 checkpoints are not ported yet (numpy has "
+            "no bfloat16 without ml_dtypes)")
+
+
 def _host_array(key: str, leaf) -> np.ndarray:
     """A leaf as a numpy array (a copy for tensors)."""
     if isinstance(leaf, torch.Tensor):
-        if leaf.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                f"{key}: bfloat16 checkpoints are not ported yet (numpy has "
-                "no bfloat16 without ml_dtypes)")
+        refuse_bfloat16(key, leaf)
         return leaf.detach().to("cpu", copy=True).numpy()
     return np.asarray(leaf)
 

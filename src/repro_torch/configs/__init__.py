@@ -1,7 +1,7 @@
 """Architecture registry of the port: the architectures whose block kinds
 the torch model implements.  Mirrors ``get_config`` / ``reduced_config`` of
-the JAX package's registry; the other architectures land with the slices
-that port their block kinds (dense variants, MoE, enc-dec, vision stub).
+the JAX package's registry; whisper-large-v3 lands with the slice that
+ports the encoder-decoder stack.
 """
 from __future__ import annotations
 
@@ -12,9 +12,15 @@ from typing import Tuple
 from repro_torch.models.config import ModelConfig
 
 ARCH_MODULES = {
+    "recurrentgemma-9b": "recurrentgemma_9b",
+    "mixtral-8x7b": "mixtral_8x7b",
+    "moonshot-v1-16b-a3b": "moonshot_v1_16b_a3b",
+    "qwen1.5-110b": "qwen15_110b",
+    "gemma2-27b": "gemma2_27b",
+    "nemotron-4-15b": "nemotron_4_15b",
     "yi-34b": "yi_34b",
     "rwkv6-3b": "rwkv6_3b",
-    "recurrentgemma-9b": "recurrentgemma_9b",
+    "pixtral-12b": "pixtral_12b",
 }
 
 

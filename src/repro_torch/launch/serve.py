@@ -2,15 +2,16 @@
 analysis and window-adaptive policies.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        [--arch yi-34b|rwkv6-3b|recurrentgemma-9b] \
+        [--arch mixtral-8x7b|gemma2-27b|yi-34b|rwkv6-3b|...] \
         [--tokens 8] [--rounds 3] [--schema paper|tpu] [--policies all] \
         [--device cuda|cpu] [--full-width] [--n-layers N]
 
 Counterpart of ``examples/serve.py``.  It prefills a batch of prompts
 (on the card: attention through the Hopper flash-attention kernel, the
 RWKV-6 and RG-LRU recurrences through their Hopper kernels, which also
-carry the recurrent state of every decode step), then decodes ``--tokens``
-tokens per request per round.  Each round is one
+carry the recurrent state of every decode step; MoE experts, norms and
+projections in plain PyTorch, as the reference computes them with jnp),
+then decodes ``--tokens`` tokens per request per round.  Each round is one
 collection window: the recorder is frozen and handed to an
 ``AsyncAnalysisSession`` (``--sync-analysis`` analyzes inline), and the
 report shows the per-window timeline of the regions prefill / decode /
@@ -179,7 +180,7 @@ def build_config(arch: str, full_width: bool,
 
 def main(argv: Optional[List[str]] = None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="yi-34b", choices=list_archs())
+    ap.add_argument("--arch", default="mixtral-8x7b", choices=list_archs())
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=32)
     ap.add_argument("--tokens", type=int, default=8,

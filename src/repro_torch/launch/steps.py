@@ -29,9 +29,9 @@ Batch = Dict[str, torch.Tensor]
 
 
 def init_state(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, seed: int = 0,
-               device: Union[str, torch.device] = "cpu") -> State:
-    """Seeded parameters (``models.init_params``) and a fresh AdamW state
-    beside them."""
+               device: Union[str, torch.device] = "cuda") -> State:
+    """Seeded parameters (``models.init_params``, on the card unless
+    ``device`` is ``"cpu"``) and a fresh AdamW state beside them."""
     model = init_params(cfg, seed, device)
     return state_for(model, opt_cfg)
 
@@ -50,10 +50,17 @@ def value_and_grad(model: Model, batch: Batch,
     named = dict(model.named_parameters())
     for p in named.values():
         p.requires_grad_(True)
+    # the vision stub's patch_proj is the one parameter a batch may not
+    # reach (no "patches"): it gets zeros, as jax.grad gives it; every
+    # other parameter must be reached, or autograd raises
+    unreached = ([n for n in named if n.startswith("patch_proj.")]
+                 if batch.get("patches") is None else [])
+    wrt = [n for n in named if n not in unreached]
     with torch.enable_grad():
         loss = loss_fn(model, batch, remat=remat)
-        grads = torch.autograd.grad(loss, list(named.values()))
-    return loss.detach(), dict(zip(named, grads))
+        grads = dict(zip(wrt, torch.autograd.grad(loss, [named[n] for n in wrt])))
+    grads.update((n, torch.zeros_like(named[n])) for n in unreached)
+    return loss.detach(), {n: grads[n] for n in named}
 
 
 def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,

@@ -1,9 +1,10 @@
 """Model API of the port: parameters, init, loss, prefill and decode.
 
 Counterpart of ``repro/models/model.py`` for decoder-only models (dense,
-hybrid RG-LRU and RWKV-6 stacks).  ``forward`` / ``chunked_loss`` /
-``loss_fn`` are the training path under autograd;
-``Model.prefill`` / ``Model.decode_step`` mirror ``prefill`` /
+MoE, hybrid RG-LRU and RWKV-6 stacks) and the vision stub (pixtral: the
+projected patch embeddings replace the first ``n_patches`` positions).
+``forward`` / ``chunked_loss`` / ``loss_fn`` are the training path under
+autograd; ``Model.prefill`` / ``Model.decode_step`` mirror ``prefill`` /
 ``decode_step`` of the reference; ``init_params`` draws every parameter
 from one ``torch.Generator`` with the reference's init rules (normal times
 the spec's scale, zeros for norm scales), in ``cfg.param_dtype``.  The
@@ -12,15 +13,16 @@ parameters across with ``models.params.from_jax_params`` instead.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple, Union
+from typing import Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..device import resolve_device
 from .config import ModelConfig
-from .layers import (Embed, Linear, Norm, apply_embed, apply_logits,
-                     apply_norm, sinusoidal, torch_dtype)
+from .layers import (Embed, Linear, Norm, apply_embed, apply_linear,
+                     apply_logits, apply_norm, sinusoidal, torch_dtype)
 from .transformer import (KERNELS, Block, Cache, Kernels, run_stack,
                           run_stack_decode, run_stack_prefill)
 
@@ -32,16 +34,16 @@ def check_supported(cfg: ModelConfig) -> None:
     otherwise silently compute something else)."""
     missing = [name for name, on in (
         ("encoder-decoder", cfg.is_encdec),
-        ("vision/audio frontend", cfg.frontend != "none"),
-        ("post-norm", cfg.post_norm)) if on]
+        ("audio frontend", cfg.frontend == "audio_stub")) if on]
     if missing:
         raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not "
                                   "ported yet (later slices of the port)")
 
 
 class Model(nn.Module):
-    """Decoder-only LM.  Parameters are uninitialized until
-    :func:`init_params` or ``params.from_jax_params`` fills them."""
+    """Decoder-only LM (with ``patch_proj`` for the vision stub).
+    Parameters are uninitialized until :func:`init_params` or
+    ``params.from_jax_params`` fills them."""
 
     def __init__(self, cfg: ModelConfig, device: Union[str, torch.device] = "cpu"):
         super().__init__()
@@ -55,15 +57,20 @@ class Model(nn.Module):
         self.logits = (None if cfg.tie_embeddings else
                        Linear(cfg.d_model, cfg.vocab_size, dtype=dtype,
                               device=device))
+        if cfg.frontend == "vision_stub":
+            self.patch_proj = Linear(cfg.d_model, cfg.d_model, dtype=dtype,
+                                     device=device)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, s_buf: int,
-                kernels: Kernels = KERNELS) -> Tuple[torch.Tensor, Cache]:
+                kernels: Kernels = KERNELS,
+                patches: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Cache]:
         """tokens (B, S) -> (last-position logits (B, 1, V) fp32, decode
         cache with ``s_buf`` slots per attention layer).  ``kernels``:
-        ``transformer.KERNELS`` (the serving path) or ``PLAIN``."""
+        ``transformer.KERNELS`` (the serving path) or ``PLAIN``;
+        ``patches``: the vision stub's (B, n_patches, d_model) embeddings."""
         cfg = self.cfg
-        x = _embed_inputs(self, tokens)
+        x = _embed_inputs(self, tokens, patches)
         pos = torch.arange(tokens.shape[1], device=tokens.device)
         x, cache = run_stack_prefill(self.layers, x, cfg, pos, s_buf, kernels)
         x = apply_norm(self.final_norm, x, cfg.norm)
@@ -84,9 +91,13 @@ class Model(nn.Module):
         return apply_logits(self.logits, self.embed, x, cfg), cache
 
 
-def _embed_inputs(model: Model, tokens: torch.Tensor) -> torch.Tensor:
+def _embed_inputs(model: Model, tokens: torch.Tensor,
+                  patches: Optional[torch.Tensor] = None) -> torch.Tensor:
     cfg = model.cfg
     x = apply_embed(model.embed, tokens, cfg)
+    if cfg.frontend == "vision_stub" and patches is not None:
+        pe = apply_linear(model.patch_proj, patches.to(x.dtype))
+        x = torch.cat([pe, x[:, cfg.n_patches:]], dim=1)
     if not cfg.use_rope:
         x = x + sinusoidal(tokens.shape[1], cfg.d_model,
                            device=x.device).to(x.dtype)[None]
@@ -97,10 +108,12 @@ def _embed_inputs(model: Model, tokens: torch.Tensor) -> torch.Tensor:
 # Forward / loss (training, under autograd)
 # ---------------------------------------------------------------------------
 
-def forward(model: Model, tokens: torch.Tensor, remat: bool = True) -> torch.Tensor:
+def forward(model: Model, tokens: torch.Tensor,
+            patches: Optional[torch.Tensor] = None,
+            remat: bool = True) -> torch.Tensor:
     """Final hidden states (B, S, d); the logits are computed chunked
     inside the loss to bound memory."""
-    x = _embed_inputs(model, tokens)
+    x = _embed_inputs(model, tokens, patches)
     pos = torch.arange(tokens.shape[1], device=tokens.device)
     x = run_stack(model.layers, x, model.cfg, pos, remat=remat)
     return apply_norm(model.final_norm, x, model.cfg.norm)
@@ -136,8 +149,9 @@ def chunked_loss(model: Model, hidden: torch.Tensor,
 def loss_fn(model: Model, batch: Dict[str, torch.Tensor],
             remat: bool = True) -> torch.Tensor:
     """Next-token cross-entropy of ``batch`` ({"tokens", "labels"}: (B, S)
-    integer tensors)."""
-    hidden = forward(model, batch["tokens"], remat=remat)
+    integer tensors; optional "patches" for the vision stub)."""
+    hidden = forward(model, batch["tokens"], patches=batch.get("patches"),
+                     remat=remat)
     return chunked_loss(model, hidden, batch["labels"])
 
 
@@ -148,10 +162,13 @@ def _sin_at(pos: int, d: int, device) -> torch.Tensor:
 
 @torch.no_grad()
 def init_params(cfg: ModelConfig, seed: int = 0,
-                device: Union[str, torch.device] = "cpu") -> Model:
+                device: Union[str, torch.device] = "cuda") -> Model:
     """A model with deterministic random weights: every weight matrix and
     the embedding ~ normal x its init scale, norm scales (and biases) 0, the
-    recurrent blocks' own parameters by their rules (``init_rules``)."""
+    recurrent and MoE blocks' own parameters by their rules
+    (``init_rules``).  On the card unless ``device`` is ``"cpu"``
+    (``device.resolve_device``: no fallback)."""
+    device = resolve_device(device)
     model = Model(cfg, device)
     gen = torch.Generator(device=device).manual_seed(seed)
 

@@ -1,0 +1,107 @@
+"""Mixture-of-Experts FFN with capacity-bounded scatter dispatch (PyTorch).
+
+Counterpart of ``repro/models/moe.py``.  Dispatch is computed per batch
+row; capacity follows GShard, C = ceil(S * top_k * capacity_factor / E),
+and assignments past an expert's capacity drop to the residual path.  The
+reference computes the whole block with jnp outside any Pallas kernel, so
+the port's expert products are ``torch.einsum`` and its combine is
+``index_add``, all under autograd (the training forward runs it too).
+The reference's sharding hints (``constrain``, ``expert_parallel``) place
+arrays on a TPU mesh and change no value; they have no counterpart here.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from .layers import Linear, _act, apply_linear, raw_params
+
+
+class MoE(nn.Module):
+    """Router ``router.w`` (d, E) and the experts' stacked weights ``wi``,
+    ``wg`` (E, d, f) and ``wo`` (E, f, d): the reference's ``moe/router/w``,
+    ``moe/wi``, ``moe/wg``, ``moe/wo`` (``moe_spec``)."""
+
+    def __init__(self, cfg, dtype=torch.float32, device="cpu"):
+        super().__init__()
+        d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+        self.router = Linear(d, E, dtype=dtype, device=device)
+        specs = {"wi": ((E, d, f), "normal", 1.0 / math.sqrt(d))}
+        if cfg.mlp_act.endswith("_glu"):
+            specs["wg"] = ((E, d, f), "normal", 1.0 / math.sqrt(d))
+        specs["wo"] = ((E, f, d), "normal", 1.0 / math.sqrt(f))
+        raw_params(self, specs, dtype, device)
+
+
+def capacity(cfg, seq: int) -> int:
+    """Slots per expert and batch row for ``seq`` tokens."""
+    c = math.ceil(seq * cfg.top_k * cfg.capacity_factor / cfg.n_experts)
+    return max(int(c), 1)
+
+
+def route(p: MoE, x: torch.Tensor, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k routing: router logits in x's dtype, softmax in fp32, the k
+    largest probabilities (ties to the lower expert, as ``lax.top_k``)
+    renormalized to sum to 1.  Returns (weights (B, S, k) in x's dtype,
+    experts (B, S, k) int64)."""
+    logits = apply_linear(p.router, x)
+    probs = torch.softmax(logits.float(), dim=-1)
+    topw, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topw, topi = topw[..., :cfg.top_k], topi[..., :cfg.top_k]
+    topw = topw / torch.sum(topw, dim=-1, keepdim=True)
+    return topw.to(x.dtype), topi
+
+
+def dispatch(topi: torch.Tensor, C: int, E: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's slot rule.  Assignments are taken token-major and
+    k-minor; each one's queue slot in its expert is the count of earlier
+    assignments to that expert.  Returns (slot (B, S*k), keep (B, S*k):
+    slot < C)."""
+    B, S, k = topi.shape
+    onehot = F.one_hot(topi.reshape(B, S * k), E)                 # (B, S*k, E)
+    slot = torch.amax(torch.cumsum(onehot, dim=1) * onehot - 1, dim=-1)
+    return slot, slot < C
+
+
+def apply_moe(p: MoE, x: torch.Tensor, cfg) -> torch.Tensor:
+    """x: (B, S, d) -> (B, S, d).  Kept assignments fill (B, E, C) buffers
+    of token ids and weights; slots never filled point at the pad row S,
+    whose zeros vanish in the combine.  Dropped assignments are written to
+    a spare column C that is cut off, so they never overwrite a kept
+    slot."""
+    B, S, d = x.shape
+    E, k = cfg.n_experts, cfg.top_k
+    C = capacity(cfg, S)
+    topw, topi = route(p, x, cfg)
+    slot, keep = dispatch(topi, C, E)
+    dev = x.device
+    b_ix = torch.arange(B, device=dev)[:, None].expand(B, S * k)
+    e_ix = topi.reshape(B, S * k)
+    c_ix = torch.where(keep, slot, torch.full_like(slot, C))
+    token_of = torch.arange(S, device=dev).repeat_interleave(k).expand(B, S * k)
+    disp = torch.full((B, E, C + 1), S, dtype=torch.long, device=dev)
+    disp[b_ix, e_ix, c_ix] = token_of
+    disp = disp[..., :C].reshape(B, E * C)
+    wbuf = x.new_zeros((B, E, C + 1))
+    wbuf[b_ix, e_ix, c_ix] = topw.reshape(B, S * k)
+    wbuf = wbuf[..., :C]
+
+    x_pad = torch.cat([x, x.new_zeros((B, 1, d))], dim=1)
+    rows = torch.arange(B, device=dev)[:, None]
+    xe = x_pad[rows, disp].reshape(B, E, C, d)
+    h = torch.einsum("becd,edf->becf", xe, p.wi.to(x.dtype))
+    h = _act(h, cfg.mlp_act)
+    if cfg.mlp_act.endswith("_glu"):
+        h = h * torch.einsum("becd,edf->becf", xe, p.wg.to(x.dtype))
+    ye = torch.einsum("becf,efd->becd", h, p.wo.to(x.dtype))
+    ye = ye * wbuf[..., None]
+
+    # combine: scatter-add back to token positions (pad row S absorbs the
+    # empty slots)
+    flat_ix = (rows * (S + 1) + disp).reshape(B * E * C)
+    out = x.new_zeros((B * (S + 1), d)).index_add(0, flat_ix, ye.reshape(B * E * C, d))
+    return out.reshape(B, S + 1, d)[:, :S]

@@ -5,7 +5,9 @@ stacked on a leading axis per group (``groups/<g>/pos<i>/...``); its
 checkpoints flatten that tree by keypath, joining dict keys and tuple
 indices with ``/`` (``ckpt/checkpoint.py``).  :func:`from_jax_params`
 takes such a flat ``{keypath: numpy array}`` mapping, unstacks the layer
-axis, and loads each slice into the port's module of the same name.  No
+axis (a MoE block's ``moe/wi`` is an ``(n, E, d, f)`` stack like any other
+layer leaf), and loads each slice into the port's module of the same name
+(top-level leaves such as ``patch_proj/w`` keep their place).  No
 array is transposed: the port keeps the reference's ``(d_in, d_out)``
 weight layout.  Arrays of numpy's ``bfloat16`` extension dtype are taken
 bit for bit.  :func:`to_jax_params` is the inverse: it restacks the port's
@@ -21,6 +23,7 @@ from typing import Dict, Mapping, Tuple, Union
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from .config import ModelConfig
 from .model import Model
 from .transformer import group_meta
@@ -136,10 +139,12 @@ def load_named(dst: Mapping[str, torch.Tensor], src: Mapping[str, torch.Tensor],
 
 @torch.no_grad()
 def from_jax_params(cfg: ModelConfig, flat: Mapping[str, np.ndarray],
-                    device: Union[str, torch.device] = "cpu") -> Model:
+                    device: Union[str, torch.device] = "cuda") -> Model:
     """A ``Model`` holding the reference's parameters (flattened by
     checkpoint keypath, e.g. ``groups/0/pos0/attn/wq/w`` of shape
-    ``(n, d_model, H*dh)``).  Raises on a missing, extra or misshapen key."""
-    model = Model(cfg, device)
+    ``(n, d_model, H*dh)``, ``groups/0/pos0/moe/wi`` of shape ``(n, E, d,
+    f)``), on the card unless ``device`` is ``"cpu"``.  Raises on a
+    missing, extra or misshapen key."""
+    model = Model(cfg, resolve_device(device))
     load_named(model.state_dict(keep_vars=True), from_jax_layout(cfg, flat))
     return model

@@ -1,13 +1,16 @@
-"""Transformer stack of the port: the ``"global"``, ``"local"``, ``"rec"``
-and ``"rwkv"`` blocks.
+"""Transformer stack of the port: the ``"global"``, ``"local"``,
+``"moe_global"``, ``"moe_local"``, ``"rec"`` and ``"rwkv"`` blocks.
 
 Counterpart of ``repro/models/transformer.py``: the training forward
 (``run_stack``, under autograd with per-layer rematerialization), prefill
 with decode-cache collection (``run_stack_prefill``) and single-token
 decode (``run_stack_decode``).  The reference scans over layers stacked on
 a leading axis; here each layer is one ``Block`` in an ``nn.ModuleList``
-and the scan is a loop over the same groups (``group_meta``).  The MoE
-block kinds raise ``NotImplementedError`` until their slice lands.
+and the scan is a loop over the same groups (``group_meta``).  Attention
+blocks take the MoE FFN (``models.moe``) in place of the MLP for the
+``moe_*`` kinds, attend within ``cfg.window`` for the ``*local`` kinds, and
+add gemma2's sandwich norms (``post1`` after attention, ``post2`` after
+the MLP or MoE) when ``cfg.post_norm`` is set.
 
 Every kernel of a serving block comes from a :class:`Kernels` bundle:
 ``KERNELS`` (``kernels.ops``: the Hopper kernels on the card, their plain
@@ -18,23 +21,26 @@ associative ``rglru_scan``), since the kernels have no backward.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import (Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..device import resolve_device
 from ..kernels import ops
 from .config import ModelConfig
 from .layers import (MLP, Attention, Norm, apply_linear, apply_mlp,
                      apply_norm, attention_block, attention_decode, mha, rope,
                      torch_dtype)
+from .moe import MoE, apply_moe
 from .rglru import (RGLRU, apply_rglru, init_rglru_state, rglru_decode,
                     rglru_scan)
 from .rwkv6 import (TimeMix, apply_channel_mix, apply_time_mix,
                     init_rwkv6_state, wkv6_chunked, wkv6_sequential)
 
-PORTED_KINDS = ("global", "local", "rec", "rwkv")
+PORTED_KINDS = ("global", "local", "moe_global", "moe_local", "rec", "rwkv")
 
 Cache = List[Dict[str, torch.Tensor]]   # one dict of state tensors per layer
 AttentionFn = Callable[..., torch.Tensor]
@@ -55,13 +61,11 @@ PLAIN = Kernels(mha, wkv6_sequential, rglru_scan)
 
 def check_kind(kind: str) -> None:
     if kind not in PORTED_KINDS:
-        raise NotImplementedError(
-            f"block kind {kind!r} is not ported yet: moe blocks land with the "
-            "MoE slice of the port")
+        raise NotImplementedError(f"block kind {kind!r} is not ported yet")
 
 
 def _window(cfg: ModelConfig, kind: str) -> int:
-    return cfg.window if kind == "local" else 0
+    return cfg.window if kind.endswith("local") else 0
 
 
 def group_meta(cfg: ModelConfig) -> Tuple[Tuple[Tuple[str, ...], int], ...]:
@@ -78,8 +82,11 @@ def group_meta(cfg: ModelConfig) -> Tuple[Tuple[Tuple[str, ...], int], ...]:
 
 
 class Block(nn.Module):
-    """Pre-norm block: attention + MLP (``"global"``, ``"local"``), RG-LRU +
-    MLP (``"rec"``), or RWKV6 time-mix + channel-mix (``"rwkv"``)."""
+    """Pre-norm block: attention + MLP (``"global"``, ``"local"``),
+    attention + MoE (``"moe_global"``, ``"moe_local"``), RG-LRU + MLP
+    (``"rec"``), or RWKV6 time-mix + channel-mix (``"rwkv"``).  With
+    ``cfg.post_norm`` every block holds ``post1`` and ``post2``, as the
+    reference's ``block_spec`` does; the attention blocks apply them."""
 
     def __init__(self, cfg: ModelConfig, kind: str, device="cpu"):
         super().__init__()
@@ -88,6 +95,9 @@ class Block(nn.Module):
         self.kind = kind
         self.ln1 = Norm(cfg.d_model, cfg.norm, dtype, device)
         self.ln2 = Norm(cfg.d_model, cfg.norm, dtype, device)
+        if cfg.post_norm:
+            self.post1 = Norm(cfg.d_model, cfg.norm, dtype, device)
+            self.post2 = Norm(cfg.d_model, cfg.norm, dtype, device)
         if kind == "rwkv":
             self.tm = TimeMix(cfg, dtype, device)
             return
@@ -95,7 +105,10 @@ class Block(nn.Module):
             self.rec = RGLRU(cfg, dtype, device)
         else:
             self.attn = Attention(cfg, dtype, device)
-        self.mlp = MLP(cfg, dtype, device)
+        if kind.startswith("moe"):
+            self.moe = MoE(cfg, dtype, device)
+        else:
+            self.mlp = MLP(cfg, dtype, device)
 
 
 # ---------------------------------------------------------------------------
@@ -125,13 +138,33 @@ def block_forward(kind: str, p: Block, x: torch.Tensor, cfg: ModelConfig,
     if kind == "rec":
         h, cache = apply_rglru(p.rec, h_in, cfg, return_state=True,
                                scan=kernels.rglru_scan)
+        return _mlp_residual(p, x + h, cfg), cache
+    h, cache = _attention_with_cache(p.attn, h_in, cfg, positions,
+                                     _window(cfg, kind), collect_cache,
+                                     kernels.attention)
+    return _attention_residuals(kind, p, x, h, cfg), cache
+
+
+def _mlp_residual(p: Block, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    return x + apply_mlp(p.mlp, apply_norm(p.ln2, x, cfg.norm), cfg)
+
+
+def _maybe_post(p: Block, h: torch.Tensor, cfg: ModelConfig, name: str) -> torch.Tensor:
+    return apply_norm(getattr(p, name), h, cfg.norm) if cfg.post_norm else h
+
+
+def _attention_residuals(kind: str, p: Block, x: torch.Tensor, h: torch.Tensor,
+                         cfg: ModelConfig) -> torch.Tensor:
+    """An attention block from its attention output ``h`` on: the residual
+    add (through ``post1``), then the MLP or MoE on ``ln2`` (through
+    ``post2``)."""
+    x = x + _maybe_post(p, h, cfg, "post1")
+    h2_in = apply_norm(p.ln2, x, cfg.norm)
+    if kind.startswith("moe"):
+        h2 = apply_moe(p.moe, h2_in, cfg)
     else:
-        h, cache = _attention_with_cache(p.attn, h_in, cfg, positions,
-                                         _window(cfg, kind), collect_cache,
-                                         kernels.attention)
-    x = x + h
-    x = x + apply_mlp(p.mlp, apply_norm(p.ln2, x, cfg.norm), cfg)
-    return x, cache
+        h2 = apply_mlp(p.mlp, h2_in, cfg)
+    return x + _maybe_post(p, h2, cfg, "post2")
 
 
 def _train_block(kind: str, p: Block, x: torch.Tensor, cfg: ModelConfig,
@@ -145,12 +178,10 @@ def _train_block(kind: str, p: Block, x: torch.Tensor, cfg: ModelConfig,
         x = x + apply_time_mix(p.tm, h_in, cfg, wkv=wkv)
         return x + apply_channel_mix(p.tm, apply_norm(p.ln2, x, cfg.norm), cfg)
     if kind == "rec":
-        h = apply_rglru(p.rec, h_in, cfg, scan=rglru_scan)
-    else:
-        h = attention_block(p.attn, h_in, cfg, positions=positions,
-                            window=_window(cfg, kind))
-    x = x + h
-    return x + apply_mlp(p.mlp, apply_norm(p.ln2, x, cfg.norm), cfg)
+        return _mlp_residual(p, x + apply_rglru(p.rec, h_in, cfg, scan=rglru_scan), cfg)
+    h = attention_block(p.attn, h_in, cfg, positions=positions,
+                        window=_window(cfg, kind))
+    return _attention_residuals(kind, p, x, h, cfg)
 
 
 def _attention_with_cache(p: Attention, x: torch.Tensor, cfg: ModelConfig,
@@ -211,12 +242,10 @@ def block_decode(kind: str, p: Block, x: torch.Tensor,
     if kind == "rec":
         h, st = rglru_decode(p.rec, h_in, cfg, cache, scan=kernels.rglru_scan)
         cache.update(st)
-    else:
-        h, cache = attention_decode(p.attn, h_in, cache, cfg, pos=pos,
-                                    window=_window(cfg, kind))
-    x = x + h
-    x = x + apply_mlp(p.mlp, apply_norm(p.ln2, x, cfg.norm), cfg)
-    return x, cache
+        return _mlp_residual(p, x + h, cfg), cache
+    h, cache = attention_decode(p.attn, h_in, cache, cfg, pos=pos,
+                                window=_window(cfg, kind))
+    return _attention_residuals(kind, p, x, h, cfg), cache
 
 
 # ---------------------------------------------------------------------------
@@ -240,7 +269,12 @@ def layer_cache_shape(cfg: ModelConfig, kind: str, batch: int,
     return {"k": spec, "v": spec}
 
 
-def init_cache(cfg: ModelConfig, batch: int, s_buf: int, device="cpu") -> Cache:
+def init_cache(cfg: ModelConfig, batch: int, s_buf: int,
+               device: Union[str, torch.device] = "cuda") -> Cache:
+    """Zeroed decode cache, one dict per layer, on ``device`` (the card
+    unless the caller asks for ``"cpu"``; ``device.resolve_device``
+    raises where there is no card)."""
+    device = resolve_device(device)
     return [{name: torch.zeros(shape, dtype=dt, device=device)
              for name, (shape, dt) in
              layer_cache_shape(cfg, kind, batch, s_buf).items()}

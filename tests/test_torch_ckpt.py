@@ -50,7 +50,8 @@ def _jax_state(n_steps):
 
 def _torch_state(n_steps):
     cfg, opt = reduced_config(ARCH), adamw.AdamWConfig(**KW)
-    state = steps.state_for(from_jax_params(cfg, flatten(_jax_state(0)["params"])), opt)
+    model = from_jax_params(cfg, flatten(_jax_state(0)["params"]), device="cpu")
+    state = steps.state_for(model, opt)
     step = steps.make_train_step(cfg, opt)
     for i in range(n_steps):
         state, _ = step(state, {k: torch.from_numpy(v).long() for k, v in _batch(i).items()})

@@ -126,6 +126,42 @@ def test_wgmma_causal_one_q_tile(card, dh, S):
     _check_wgmma(card, 1, S, 2, 1, dh, seed=12, causal=True)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(causal=True, softcap=50.0, scale=144.0 ** -0.5),
+    dict(causal=True, softcap=50.0, scale=144.0 ** -0.5, window=256)],
+    ids=["gemma2-global", "gemma2-local"])
+def test_wgmma_gemma2_heads_match_plain(card, kw):
+    """gemma2-27b's attention: 32 query heads on 16 KV heads, softcap 50
+    with the query scale 144^-0.5, with and without a window."""
+    _check_wgmma(card, 2, 700, 32, 16, 128, seed=27, **kw)
+
+
+def test_wgmma_mixtral_heads_match_plain(card):
+    """mixtral-8x7b's attention: 32 query heads on 8 KV heads, a window."""
+    _check_wgmma(card, 2, 700, 32, 8, 128, seed=87, causal=True, window=256)
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "gemma2-27b", "pixtral-12b"])
+def test_new_families_prefill_on_card_matches_plain(card, arch):
+    """This slice's families at reduced widths on the card: the prefill
+    through the kernels (K1 once per layer) against the plain forms."""
+    import numpy as np
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import PLAIN
+
+    cfg = reduced_config(arch, param_dtype="bfloat16")
+    model = init_params(cfg, 0)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40))).to(card)
+    before = fa.flash_attention.launches
+    got, _ = model.prefill(tokens, 48)
+    assert fa.flash_attention.launches == before + cfg.n_layers
+    want, _ = model.prefill(tokens, 48, kernels=PLAIN)
+    rms = float(want.pow(2).mean().sqrt())
+    torch.testing.assert_close(got, want, rtol=5e-2, atol=1e-1 * max(1.0, rms))
+
+
 def _wkv_inputs(card, B, T, H, dh, dtype, seed):
     g = torch.Generator(device=card).manual_seed(seed)
     r, k, v = (0.5 * torch.randn((B, T, H, dh), generator=g, device=card) for _ in range(3))
@@ -342,7 +378,7 @@ def test_train_step_on_card_launches_no_kernel(card, arch):
     counters = (fa.flash_attention, k2.rglru_scan_kernel, k3.wkv6_kernel)
     before = [fn.launches for fn in counters]
     for dev in ("cpu", card):
-        state = steps.init_state(cfg, opt, seed=0)
+        state = steps.init_state(cfg, opt, seed=0, device="cpu")   # drawn on the CPU
         state["params"].to(dev)
         state["opt"] = adamw.init(dict(state["params"].named_parameters()), opt)
         _, m = steps.make_train_step(cfg, opt)(

@@ -44,6 +44,7 @@ def test_import_loads_no_jax_and_no_reference():
         assert f"repro_torch.kernels.{name}" in got["modules"]
     assert "repro_torch.models.rwkv6" in got["modules"]
     assert "repro_torch.models.rglru" in got["modules"]
+    assert "repro_torch.models.moe" in got["modules"]
     assert [m for m in got["loaded"] if _foreign(m)] == []
 
 

@@ -22,9 +22,11 @@ from repro.configs import reduced_config as jreduced_config  # noqa: E402
 from repro.models import init_params as jinit_params  # noqa: E402
 from repro.models.model import decode_step as jdecode_step  # noqa: E402
 from repro.models.model import prefill as jprefill  # noqa: E402
-from repro_torch.configs import get_config, reduced_config  # noqa: E402
+from repro_torch.configs import get_config, list_archs, reduced_config  # noqa: E402
+from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models import from_jax_params, init_params  # noqa: E402
 from repro_torch.models.transformer import init_cache  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 from _torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
 
 TOL = {"float32": dict(rtol=1e-4, atol=1e-4),
@@ -55,30 +57,36 @@ def _np(x):
 
 
 def test_configs_mirror_reference():
-    for name in ("yi-34b",):
+    """All nine published configs, and their reduced configs, equal the
+    reference's field by field."""
+    assert len(list_archs()) == 9
+    for name in list_archs():
         assert dataclasses.asdict(get_config(name)) == \
             dataclasses.asdict(jget_config(name))
-        for kw in VARIANTS.values():
-            assert dataclasses.asdict(reduced_config(name, **kw)) == \
-                dataclasses.asdict(jreduced_config(name, **kw))
+        assert dataclasses.asdict(reduced_config(name)) == \
+            dataclasses.asdict(jreduced_config(name))
+    for kw in VARIANTS.values():
+        assert dataclasses.asdict(reduced_config("yi-34b", **kw)) == \
+            dataclasses.asdict(jreduced_config("yi-34b", **kw))
 
 
 def test_unported_arch_raises():
+    assert "whisper-large-v3" not in list_archs()
     with pytest.raises(KeyError, match="not ported"):
-        get_config("mixtral-8x7b")
+        get_config("whisper-large-v3")
 
 
 def test_params_carry_across_exactly():
     jcfg, cfg = _configs("yi-reduced-gqa", "bfloat16")
     flat = flatten(jinit_params(jcfg, 0))
-    model = from_jax_params(cfg, flat)
+    model = from_jax_params(cfg, flat, device="cpu")
     sd = model.state_dict()
     assert len(sd) == 3 + 9 * cfg.n_layers
     np.testing.assert_array_equal(sd["layers.1.attn.wk.w"].numpy(),
                                   flat["groups/0/pos0/attn/wk/w"][1])
     np.testing.assert_array_equal(sd["embed.table"].numpy(), flat["embed/table"])
     with pytest.raises(KeyError):
-        from_jax_params(cfg, {k: v for k, v in flat.items() if k != "logits/w"})
+        from_jax_params(cfg, {k: v for k, v in flat.items() if k != "logits/w"}, device="cpu")
 
 
 def test_bf16_params_carry_bit_for_bit():
@@ -86,7 +94,7 @@ def test_bf16_params_carry_bit_for_bit():
     jcfg = dataclasses.replace(jcfg, param_dtype="bfloat16")
     cfg = dataclasses.replace(cfg, param_dtype="bfloat16")
     flat = flatten(jinit_params(jcfg, 0))
-    model = from_jax_params(cfg, flat)
+    model = from_jax_params(cfg, flat, device="cpu")
     w = model.state_dict()["layers.0.mlp.wo.w"]
     assert w.dtype == torch.bfloat16
     np.testing.assert_array_equal(w.float().numpy(),
@@ -95,8 +103,8 @@ def test_bf16_params_carry_bit_for_bit():
 
 def test_init_params_is_seeded():
     cfg = reduced_config("yi-34b")
-    a, b = init_params(cfg, 3), init_params(cfg, 3)
-    c = init_params(cfg, 4)
+    a, b = init_params(cfg, 3, "cpu"), init_params(cfg, 3, "cpu")
+    c = init_params(cfg, 4, "cpu")
     for (name, x), y, z in zip(a.state_dict().items(), b.state_dict().values(),
                                c.state_dict().values()):
         torch.testing.assert_close(x, y, rtol=0, atol=0)
@@ -112,7 +120,7 @@ def test_init_params_is_seeded():
 def test_prefill_and_decode_match_reference(variant, compute_dtype):
     jcfg, cfg = _configs(variant, compute_dtype)
     params = jinit_params(jcfg, 0)
-    model = from_jax_params(cfg, flatten(params))
+    model = from_jax_params(cfg, flatten(params), device="cpu")
     tokens = np.random.default_rng(7).integers(0, cfg.vocab_size, (B, S))
     s_buf = S + STEPS
     tol = TOL[compute_dtype]
@@ -146,7 +154,7 @@ def test_prefill_then_decode_matches_longer_prefill():
     """Decoding token S after a prefill of S tokens gives the logits of a
     prefill of S + 1 tokens (the port against itself, float32)."""
     cfg = reduced_config("yi-34b", n_heads=8, n_kv_heads=2, compute_dtype="float32")
-    model = init_params(cfg, 1)
+    model = init_params(cfg, 1, "cpu")
     tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (B, S + 1)))
     want, _ = model.prefill(tokens, S + 1)
     _, cache = model.prefill(tokens[:, :S], S + 4)
@@ -156,16 +164,37 @@ def test_prefill_then_decode_matches_longer_prefill():
 
 def test_init_cache_shapes():
     cfg = reduced_config("yi-34b", n_heads=8, n_kv_heads=2)
-    cache = init_cache(cfg, 3, 20)
+    cache = init_cache(cfg, 3, 20, device="cpu")
     assert len(cache) == cfg.n_layers
     assert cache[0]["k"].shape == (3, 20, 2, cfg.d_head)
     assert cache[0]["v"].dtype == torch.bfloat16
 
 
 def test_unported_block_kind_raises():
-    cfg = dataclasses.replace(reduced_config("yi-34b"), block_pattern=("moe_global", "global"))
-    with pytest.raises(NotImplementedError, match="not ported"):
-        init_params(cfg, 0)
+    """The encoder-decoder's blocks (whisper: cross-attention, the encoder
+    stack, the audio stub) are refused, not silently run as a decoder."""
+    cfg = dataclasses.replace(reduced_config("yi-34b"), encoder_layers=2, encoder_seq=24)
+    with pytest.raises(NotImplementedError, match="encoder-decoder not ported"):
+        init_params(cfg, 0, "cpu")
+    cfg = dataclasses.replace(reduced_config("yi-34b"), frontend="audio_stub")
+    with pytest.raises(NotImplementedError, match="audio frontend not ported"):
+        init_params(cfg, 0, "cpu")
+
+
+@pytest.mark.parametrize("entry", ["init_params", "from_jax_params", "init_state",
+                                   "init_cache"])
+def test_entry_points_default_to_the_card(entry):
+    """Without a ``device`` the model API's entry points run on the card
+    and raise where there is none; they never fall back to the host."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    cfg = reduced_config("yi-34b")
+    calls = {"init_params": lambda: init_params(cfg, 0),
+             "from_jax_params": lambda: from_jax_params(cfg, {}),
+             "init_state": lambda: steps.init_state(cfg, adamw.AdamWConfig()),
+             "init_cache": lambda: init_cache(cfg, 2, 8)}
+    with pytest.raises(RuntimeError, match="is_available"):
+        calls[entry]()
 
 
 class _P:

@@ -105,7 +105,7 @@ def _rec_block(compute_dtype="float32"):
     jcfg, cfg = _configs(compute_dtype)
     params = jinit_params(jcfg, 0)
     jp = jax.tree_util.tree_map(lambda a: a[0], params["groups"][0]["pos0"]["rec"])
-    model = from_jax_params(cfg, flatten(params))
+    model = from_jax_params(cfg, flatten(params), device="cpu")
     return jcfg, cfg, jp, model.layers[0].rec
 
 
@@ -177,7 +177,7 @@ def test_windowed_attention_decode_matches_reference(pos):
     jcfg, cfg = _configs()
     params = jinit_params(jcfg, 0)
     jp = jax.tree_util.tree_map(lambda a: a[0], params["groups"][0]["pos2"]["attn"])
-    tp = from_jax_params(cfg, flatten(params)).layers[2].attn
+    tp = from_jax_params(cfg, flatten(params), device="cpu").layers[2].attn
     rng = np.random.default_rng(pos)
     x = rng.standard_normal((B, 1, cfg.d_model)).astype(np.float32)
     kc, vc = (rng.standard_normal((B, cfg.window, 1, cfg.d_head)).astype(np.float32)
@@ -239,7 +239,7 @@ def test_prefill_and_decode_match_reference(compute_dtype):
     jcfg, cfg = _configs(compute_dtype)
     assert [len(u) for u, _ in group_meta(cfg)] == [3, 2]   # leftover group
     params = jinit_params(jcfg, 0)
-    model = from_jax_params(cfg, flatten(params))
+    model = from_jax_params(cfg, flatten(params), device="cpu")
     tokens = np.random.default_rng(7).integers(0, cfg.vocab_size, (B, S))
     s_buf = S + STEPS
     tol = TOL[compute_dtype]
@@ -278,7 +278,7 @@ def test_plain_kernels_match_serving_path():
     """Prefill through the models' plain forms (``PLAIN``: jnp-style mha,
     associative scan) equals prefill through ``kernels.ops`` (float32)."""
     _, cfg = _configs("float32")
-    model = init_params(cfg, 2)
+    model = init_params(cfg, 2, "cpu")
     tokens = torch.from_numpy(np.random.default_rng(8).integers(0, cfg.vocab_size, (B, S)))
     want, want_cache = model.prefill(tokens, S + 4)
     got, got_cache = model.prefill(tokens, S + 4, kernels=PLAIN)
@@ -293,7 +293,7 @@ def test_prefill_then_decode_matches_longer_prefill():
     prefill of S + 1 tokens (the port against itself, float32), with the
     window's ring buffer already wrapped."""
     _, cfg = _configs("float32")
-    model = init_params(cfg, 1)
+    model = init_params(cfg, 1, "cpu")
     tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (B, S + 1)))
     want, _ = model.prefill(tokens, S + 1)
     _, cache = model.prefill(tokens[:, :S], S + 4)

@@ -199,7 +199,7 @@ def _block(compute_dtype="float32"):
     cfg = reduced_config("rwkv6-3b", compute_dtype=compute_dtype)
     params = jinit_params(jcfg, 0)
     jp = jax.tree_util.tree_map(lambda a: a[0], params["groups"][0]["pos0"]["tm"])
-    model = from_jax_params(cfg, flatten(params))
+    model = from_jax_params(cfg, flatten(params), device="cpu")
     return jcfg, cfg, jp, model.layers[0].tm
 
 
@@ -300,7 +300,7 @@ def test_cache_shapes():
         "cm_shift": ((3, 64), torch.float32)}
     full = get_config("rwkv6-3b")
     assert layer_cache_shape(full, "rwkv", 4, 2096)["wkv"] == ((4, 40, 64, 64), torch.float32)
-    assert len(init_cache(cfg, 3, 20)) == cfg.n_layers
+    assert len(init_cache(cfg, 3, 20, device="cpu")) == cfg.n_layers
 
 
 def _ref_cache(j_cache, layer):
@@ -316,7 +316,7 @@ def test_prefill_and_decode_match_reference(compute_dtype, monkeypatch):
         # the port is held to its exact sequential form (its decode form)
         monkeypatch.setattr(jrwkv6, "wkv6_chunked", jrwkv6.wkv6_sequential)
     params = jinit_params(jcfg, 0)
-    model = from_jax_params(cfg, flatten(params))
+    model = from_jax_params(cfg, flatten(params), device="cpu")
     tokens = np.random.default_rng(7).integers(0, cfg.vocab_size, (B, S))
     s_buf = S + STEPS
     tol = TOL[compute_dtype]
@@ -353,7 +353,7 @@ def test_prefill_then_decode_matches_longer_prefill():
     prefill of S + 1 tokens (the port against itself, float32): the
     recurrent state and the sinusoidal position carry across."""
     cfg = reduced_config("rwkv6-3b", compute_dtype="float32")
-    model = init_params(cfg, 1)
+    model = init_params(cfg, 1, "cpu")
     tokens = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (B, S + 1)))
     want, _ = model.prefill(tokens, S + 1)
     _, cache = model.prefill(tokens[:, :S], S + 4)

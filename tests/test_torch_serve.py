@@ -1,8 +1,10 @@
 """The port's serving entry point on the CPU: ``python -m
-repro_torch.launch.serve --device cpu`` runs the reduced yi-34b, rwkv6-3b
-and recurrentgemma-9b through prefill and decode rounds with one analysis
-window per round, and the default device (the card) raises where there is
-none instead of falling back to the host."""
+repro_torch.launch.serve --device cpu`` runs the reduced mixtral-8x7b (the
+default), gemma2-27b, moonshot-v1-16b-a3b, rwkv6-3b and recurrentgemma-9b
+through prefill and decode rounds with one analysis window per round, and
+the default device (the card) raises where there is none instead of
+falling back to the host.  The serving path's kernel calls are rehearsed
+for all nine architectures."""
 import os
 import subprocess
 import sys
@@ -13,7 +15,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.configs import reduced_config  # noqa: E402
+from repro_torch.configs import list_archs, reduced_config  # noqa: E402
 from repro_torch.kernels import flash_attention as k1  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels import rglru_scan as k2  # noqa: E402
@@ -42,9 +44,11 @@ def test_cli_cpu_prints_three_window_timeline():
         assert f"[round {rnd}] internal bottlenecks:" in out.stdout
     assert "timeline:" in out.stdout
     assert "tok/s (host CPU)" in out.stdout
+    assert "[serve] mixtral-8x7b (d_model=64" in out.stdout
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b", "gemma2-27b",
+                                  "moonshot-v1-16b-a3b"])
 def test_cli_cpu_recurrent_archs(arch):
     """The two recurrent families at reduced size on the host: one analysis
     window per round."""
@@ -96,11 +100,15 @@ def test_build_config_widths():
         assert build_config(arch, False, None) == reduced_config(arch)
         full = build_config(arch, True, None)
         assert (full.d_model, full.n_heads, full.n_kv_heads, full.n_layers) == widths
+    for arch, widths in (("mixtral-8x7b", (4096, 32, 8, 16)),
+                         ("gemma2-27b", (4608, 32, 16, 46))):
+        full = build_config(arch, True, 16 if arch == "mixtral-8x7b" else None)
+        assert (full.d_model, full.n_heads, full.n_kv_heads, full.n_layers) == widths
     with pytest.raises(KeyError, match="not ported"):
-        build_config("mixtral-8x7b", False, None)
+        build_config("whisper-large-v3", False, None)
 
 
-@pytest.mark.parametrize("arch", ["yi-34b", "rwkv6-3b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", list_archs())
 def test_serving_path_feeds_kernels_what_they_take(arch):
     """The serving path's calls of K1, K2 and K3, rehearsed on the host: each
     call's arguments (as ``kernels.ops`` hands them to the kernel) pass the
@@ -126,7 +134,7 @@ def test_serving_path_feeds_kernels_what_they_take(arch):
 
     kernels = Kernels(attention, wkv6, rglru_scan)
     cfg = reduced_config(arch, param_dtype="bfloat16")
-    model = init_params(cfg, 0)
+    model = init_params(cfg, 0, "cpu")
     tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 20)))
     steps = 2
     logits, cache = model.prefill(tokens, 20 + steps, kernels=kernels)
@@ -135,7 +143,7 @@ def test_serving_path_feeds_kernels_what_they_take(arch):
                                           kernels=kernels)
     assert torch.isfinite(logits).all()
     kinds = cfg.layer_kinds
-    n_attn = sum(k in ("global", "local") for k in kinds)
+    n_attn = sum(k not in ("rec", "rwkv") for k in kinds)
     assert calls == {"attention": n_attn,   # decode attention is plain
                      "wkv6": kinds.count("rwkv") * (1 + steps),
                      "rglru_scan": kinds.count("rec") * (1 + steps)}

@@ -4,7 +4,9 @@ Parameters come from the reference's ``init_params`` and are carried
 across by checkpoint keypath (``from_jax_params``); tokens are drawn from a
 numpy seed.  ``loss_fn`` and every gradient are held against
 ``jax.value_and_grad(repro.models.model.loss_fn)`` on the reduced yi-34b,
-rwkv6-3b and recurrentgemma-9b: at fp32 compute the loss to rtol 1e-5 and
+rwkv6-3b, recurrentgemma-9b, mixtral-8x7b (MoE with drops, window) and
+gemma2-27b (sandwich norms, softcaps), all with fp32 parameters (the
+reduced mixtral's are bf16, which ``to_jax_params`` refuses): at fp32 compute the loss to rtol 1e-5 and
 the gradients to rtol 1e-4 with atol 1e-6 * max|g_ref|; at bf16 compute
 both to 2e-2 (the kernel tests' bf16 tolerance, the atol scaled by
 max|g_ref|).
@@ -27,10 +29,15 @@ rwkv6-3b's to 2e-3 (measured: 3.6e-4); at bf16 to 5e-2 (measured: 2.1e-2
 on rwkv6-3b, 1.4e-2 on recurrentgemma-9b, 7.7e-3 on yi-34b).  A leaf that
 is zeroed gives 1.
 
+pixtral-12b's loss and gradients are held with and without "patches"
+(without them ``patch_proj`` gets zeros, as from ``jax.grad``), and a
+parameter the forward does not reach otherwise makes the gradient raise.
+
 Also here: gradients with remat on and off are equal bit for bit (one
 group per layer, and nine layers, the reference's two-level sqrt split);
 the chunked loss over several chunks; ``mha``'s per-chunk checkpoint;
-``to_jax_params`` inverts ``from_jax_params``; ten ``make_train_step``
+``to_jax_params`` inverts ``from_jax_params`` for all nine architectures;
+ten ``make_train_step``
 steps (microbatches 1 and 2) track the reference's losses to 1e-4.
 """
 import dataclasses
@@ -50,7 +57,7 @@ from repro.models import init_params as jinit_params  # noqa: E402
 from repro.models.layers import mha as jmha  # noqa: E402
 from repro.optim import adamw as jadamw  # noqa: E402
 import repro_torch.models.model as tmodel  # noqa: E402
-from repro_torch.configs import reduced_config  # noqa: E402
+from repro_torch.configs import list_archs, reduced_config  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
 from repro_torch.models import from_jax_params  # noqa: E402
 from repro_torch.models.layers import mha  # noqa: E402
@@ -59,7 +66,7 @@ from repro_torch.optim import adamw  # noqa: E402
 from _torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
 from test_torch_model import flatten  # noqa: E402
 
-ARCHS = ["yi-34b", "rwkv6-3b", "recurrentgemma-9b"]
+ARCHS = ["yi-34b", "rwkv6-3b", "recurrentgemma-9b", "mixtral-8x7b", "gemma2-27b"]
 B, S = 2, 16
 LOSS_RTOL = {"float32": 1e-5, "bfloat16": 2e-2}
 # (rtol, atol / max|g_ref|, limit of |g - g_ref| / |g_ref| over each leaf)
@@ -105,11 +112,11 @@ def _check_grads(got, want, rtol, atol_rel, norm_rel):
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", ARCHS)
 def test_loss_and_grads_match_reference(arch, compute_dtype):
-    jcfg = jreduced_config(arch, compute_dtype=compute_dtype)
-    cfg = reduced_config(arch, compute_dtype=compute_dtype)
+    kw = dict(compute_dtype=compute_dtype, param_dtype="float32")
+    jcfg, cfg = jreduced_config(arch, **kw), reduced_config(arch, **kw)
     batch = _batch(cfg.vocab_size)
     jparams, jloss, jgrads = _reference(jcfg, batch)
-    model = from_jax_params(cfg, flatten(jparams))
+    model = from_jax_params(cfg, flatten(jparams), device="cpu")
     loss, grads = _port_grads(model, batch)
     assert loss == pytest.approx(jloss, rel=LOSS_RTOL[compute_dtype])
     got = to_jax_layout(cfg, {n: g.float() for n, g in grads.items()})
@@ -118,14 +125,60 @@ def test_loss_and_grads_match_reference(arch, compute_dtype):
     _check_grads(got, jgrads, *tol)
 
 
-@pytest.mark.parametrize("arch,n_layers", [("yi-34b", None), ("rwkv6-3b", None),
-                                           ("recurrentgemma-9b", None), ("yi-34b", 9)])
+def test_pixtral_loss_with_patches_matches_reference():
+    """A batch with "patches" (the vision stub's embeddings) gives the
+    reference's loss and gradients, ``patch_proj``'s included (fp32)."""
+    jcfg = jreduced_config("pixtral-12b", compute_dtype="float32")
+    cfg = reduced_config("pixtral-12b", compute_dtype="float32")
+    batch = _batch(cfg.vocab_size, seed=8)
+    batch["patches"] = np.random.default_rng(9).standard_normal(
+        (B, cfg.n_patches, cfg.d_model)).astype(np.float32)
+    jparams, jloss, jgrads = _reference(jcfg, batch)
+    model = from_jax_params(cfg, flatten(jparams), device="cpu")
+    tb = {k: torch.from_numpy(v) if k == "patches" else torch.from_numpy(v).long()
+          for k, v in batch.items()}
+    loss, grads = steps.value_and_grad(model, tb)
+    assert float(loss) == pytest.approx(jloss, rel=1e-5)
+    got = to_jax_layout(cfg, grads)
+    assert float(np.abs(got["patch_proj/w"]).max()) > 0
+    _check_grads(got, jgrads, *GRAD_TOL["float32"])
+
+
+def test_pixtral_without_patches_gives_patch_proj_zeros():
+    """A batch without "patches" never reaches ``patch_proj``: its gradient
+    is zeros, as ``jax.grad`` gives it, and every other leaf matches."""
+    jcfg = jreduced_config("pixtral-12b", compute_dtype="float32")
+    cfg = reduced_config("pixtral-12b", compute_dtype="float32")
+    batch = _batch(cfg.vocab_size, seed=10)
+    jparams, jloss, jgrads = _reference(jcfg, batch)
+    loss, grads = _port_grads(from_jax_params(cfg, flatten(jparams), device="cpu"), batch)
+    assert loss == pytest.approx(jloss, rel=1e-5)
+    got = to_jax_layout(cfg, grads)
+    assert not np.asarray(jgrads["patch_proj/w"]).any()
+    assert not got["patch_proj/w"].any()
+    _check_grads({k: v for k, v in got.items() if k != "patch_proj/w"},
+                 {k: v for k, v in jgrads.items() if k != "patch_proj/w"},
+                 *GRAD_TOL["float32"])
+
+
+def test_unreached_parameter_raises():
+    """Any parameter the forward does not reach, other than the vision
+    stub's ``patch_proj`` without patches, makes the gradient raise rather
+    than take zeros (a block wired wrongly must not train silently)."""
+    cfg = reduced_config("yi-34b", compute_dtype="float32")
+    model = tmodel.init_params(cfg, 0, "cpu")
+    model.register_parameter("stray", torch.nn.Parameter(torch.zeros(3)))
+    with pytest.raises(RuntimeError, match="not have been used"):
+        _port_grads(model, _batch(cfg.vocab_size))
+
+
+@pytest.mark.parametrize("arch,n_layers", [(arch, None) for arch in ARCHS] + [("yi-34b", 9)])
 def test_remat_gradients_equal_bit_for_bit(arch, n_layers):
-    kw = dict(compute_dtype="float32")
+    kw = dict(compute_dtype="float32", param_dtype="float32")
     if n_layers:
         kw.update(n_layers=n_layers)   # 9 repetitions: the two-level split
     cfg = reduced_config(arch, **kw)
-    model = tmodel.init_params(cfg, 0)
+    model = tmodel.init_params(cfg, 0, "cpu")
     batch = _batch(cfg.vocab_size, seed=3)
     l1, g1 = _port_grads(model, batch, remat=True)
     l0, g0 = _port_grads(model, batch, remat=False)
@@ -141,7 +194,7 @@ def test_nine_layers_match_reference():
     cfg = reduced_config("yi-34b", compute_dtype="float32", n_layers=9)
     batch = _batch(cfg.vocab_size, seed=4)
     jparams, jloss, jgrads = _reference(jcfg, batch)
-    loss, grads = _port_grads(from_jax_params(cfg, flatten(jparams)), batch)
+    loss, grads = _port_grads(from_jax_params(cfg, flatten(jparams), device="cpu"), batch)
     assert loss == pytest.approx(jloss, rel=1e-5)
     _check_grads(to_jax_layout(cfg, grads), jgrads, *GRAD_TOL["float32"])
 
@@ -153,7 +206,7 @@ def test_chunked_loss_over_several_chunks(monkeypatch):
     jcfg = jreduced_config("yi-34b", compute_dtype="float32")
     cfg = reduced_config("yi-34b", compute_dtype="float32")
     batch = _batch(cfg.vocab_size, seed=5)
-    model = from_jax_params(cfg, flatten(jinit_params(jcfg, 0)))
+    model = from_jax_params(cfg, flatten(jinit_params(jcfg, 0)), device="cpu")
     one, _ = _port_grads(model, batch)
     monkeypatch.setattr(jmodel, "LOSS_CHUNK", 4)
     monkeypatch.setattr(tmodel, "LOSS_CHUNK", 4)
@@ -185,11 +238,12 @@ def test_mha_chunks_under_autograd_match_reference(window):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-4, atol=1e-5)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", list_archs())
 def test_to_jax_params_inverts_from_jax_params(arch):
-    jcfg, cfg = jreduced_config(arch), reduced_config(arch)
+    kw = dict(param_dtype="float32")
+    jcfg, cfg = jreduced_config(arch, **kw), reduced_config(arch, **kw)
     flat = flatten(jinit_params(jcfg, 0))
-    back = to_jax_params(from_jax_params(cfg, flat))
+    back = to_jax_params(from_jax_params(cfg, flat, device="cpu"))
     assert set(back) == set(flat)
     for key, arr in flat.items():
         assert back[key].dtype == arr.dtype and np.array_equal(back[key], arr), key
@@ -211,7 +265,8 @@ def test_train_steps_track_reference(microbatches):
     jopt, opt = jadamw.AdamWConfig(**kw), adamw.AdamWConfig(**kw)
     data = SyntheticTokens(cfg.vocab_size, 4, S, seed=2)
     jstate = jsteps.init_state(jcfg, jopt, seed=0)
-    state = steps.state_for(from_jax_params(cfg, flatten(jstate["params"])), opt)
+    model = from_jax_params(cfg, flatten(jstate["params"]), device="cpu")
+    state = steps.state_for(model, opt)
     jstep = jax.jit(jsteps.make_train_step(jcfg, jopt, microbatches))
     step = steps.make_train_step(cfg, opt, microbatches)
     jl, tl = [], []
@@ -231,6 +286,6 @@ def test_train_steps_track_reference(microbatches):
 def test_microbatches_must_split_evenly():
     cfg = reduced_config("yi-34b")
     opt = adamw.AdamWConfig()
-    state = steps.init_state(cfg, opt)
+    state = steps.init_state(cfg, opt, device="cpu")
     with pytest.raises(ValueError, match="microbatches"):
         steps.make_train_step(cfg, opt, 2)(state, _tbatch(_batch(cfg.vocab_size, b=3)))
