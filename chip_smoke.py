@@ -14,12 +14,16 @@ script.  Phases, each raising on failure (nothing is caught):
          case (the tolerances of the JAX package's kernel tests: bf16 2e-2,
          f32 1e-5, TF32 off): K1 (flash attention; each case prints the
          kernel its dtype and head size choose: ``"wgmma"``, the tensor-core
-         kernel, for bf16 at d_head 128 and 256, ``"simt"`` otherwise; also
-         at d_head 256 with 16 query heads on one KV head and a window; at
-         gemma2-27b's heads, 32 on 16 KV heads with softcap 50 and query
+         kernel, for bf16 at d_head 64, 128 and 256, ``"simt"`` otherwise;
+         also at d_head 256 with 16 query heads on one KV head and a window;
+         at gemma2-27b's heads, 32 on 16 KV heads with softcap 50 and query
          scale 144^-0.5, with and without a window, and mixtral-8x7b's, 32
-         on 8 with a window, fp32 at S=1000 and window 384; K1's serving
-         shapes are checked in C), K3 (WKV6, y and the final state,
+         on 8 with a window, fp32 at S=1000 and window 384; at
+         whisper-large-v3's, 20 of 64 with no GQA, bf16 and fp32: causal at
+         S=224, non-causal at S=1500 (a ragged last key tile of 92) and
+         cross, 224 queries on 1500 keys; one Sq != Sk non-causal case at
+         d_head 128 and one at 256; K1's serving shapes are checked in C),
+         K3 (WKV6, y and the final state,
          T = 1 from a state, ragged T, d_head 32: two blocks of value columns
          per head, with B*H = 21, and rwkv6-3b's serving shape) and K2
          (RG-LRU scan, equal to the plain loop bit for bit, also at
@@ -59,7 +63,11 @@ script.  Phases, each raising on failure (nothing is caught):
          so the 4096 window excludes pairs), with the models' q-chunked
          plain form as the plain version there; at every K1 shape the
          kernel's output and the yardstick's are first held against the
-         plain version's on the timed inputs (bf16 2e-2); K2's staged
+         plain version's on the timed inputs (bf16 2e-2); K1 also at
+         whisper-large-v3's three shapes (B=16, 20 heads of 64): the
+         encoder's 1500 frames on 1500, the cross-attention's 224 queries on
+         1500 frames (non-causal, yardstick SDPA without a mask) and the
+         decoder's causal 224; K2's staged
          and simple kernels alternated at recurrentgemma-9b's prefill shape
          (the simple one is the time before), with TB/s, the grid and the
          staged kernel's compiled schedule; K2 and K3 also at their decode
@@ -95,7 +103,15 @@ script.  Phases, each raising on failure (nothing is caught):
          2, batch 2, prompt 2048.  K1 launches once per attention layer per
          prefill, every launch on "wgmma", K2 and K3 never; the checks of B,
          and for pixtral-12b also a prefill with random patches, kernels
-         against the plain forms.
+         against the plain forms;
+  F      the serving path as in B on whisper-large-v3, the encoder-decoder,
+         at published widths and full depth (32 encoder and 32 decoder
+         layers, d_model 1280, 20 heads of 64), bf16 weights from the seed,
+         batch 16, prompt 224, 1500 random bf16 frames drawn by the server:
+         K1 96 times per prefill (each encoder layer, each decoder layer's
+         self- and cross-attention), every launch on "wgmma", K2 and K3
+         never; 3 windows; kernel vs plain logits on the same frames; prints
+         cold and warm prefill, decode tok/s and peak memory.
 
 The last lines are the card's name and power limit, one JSON line of kernel
 records, and the verdict ``{"ok": true, "device": {...}}``.
@@ -130,6 +146,8 @@ E_BATCH, E_PROMPT, E_WINDOW = 2, 8192, 4096        # mixtral's and gemma2's pref
 G2_H, G2_KH, G2_SOFTCAP, G2_SCALE = 32, 16, 50.0, 144.0 ** -0.5   # gemma2-27b attention
 G2_KW = dict(causal=True, softcap=G2_SOFTCAP, scale=G2_SCALE)
 MX_H, MX_KH = 32, 8              # mixtral-8x7b attention
+# phase F and whisper's K1 shapes: batch, prompt, 20 heads of 64, 1500 frames
+WH_BATCH, WH_PROMPT, WH_H, WH_DH, WH_FRAMES = 16, 224, 20, 64, 1500
 GRAPH_CALLS = 50                 # K2 or K3 launches per CUDA graph at the decode shape
 TRAIN_LAYERS, TRAIN_FALLBACK_LAYERS = 4, 2
 TRAIN_ARGV = ["--arch", "yi-34b", "--full-width", "--batch", "2", "--seq", "2048",
@@ -197,11 +215,12 @@ def free():
     torch.cuda.empty_cache()
 
 
-def qkv(B, S, h, kh, dh, dtype, seed):
+def qkv(B, S, h, kh, dh, dtype, seed, Sk=None):
+    """q (B, S, h, dh) and k, v (B, Sk, kh, dh); ``Sk`` defaults to ``S``."""
     import torch
     g = torch.Generator(device="cuda").manual_seed(seed)
-    mk = lambda n: torch.randn((B, S, n, dh), generator=g, device="cuda").to(dtype)
-    return mk(h), mk(kh), mk(kh)
+    mk = lambda n, s: torch.randn((B, s, n, dh), generator=g, device="cuda").to(dtype)
+    return mk(h, S), mk(kh, Sk or S), mk(kh, Sk or S)
 
 
 def wkv_inputs(B, T, h, dh, dtype, seed, with_s0):
@@ -227,8 +246,10 @@ def scan_inputs(B, S, W, seed, with_h0):
 
 def phase_a_attention(torch, ops, fa):
     """K1 vs plain, case by case (the serving shapes are checked in C, on
-    the inputs that are timed there)."""
+    the inputs that are timed there).  S is an int, or (Sq, Sk) where the
+    keys are not the queries (cross-attention)."""
     rg_kw = dict(causal=True, window=RG_WINDOW)
+    full = dict(causal=False)
     cases = [  # name, B, S, H, KH, dh, dtype, kwargs
         ("causal yi", 2, 1024, H, KH, DH, "bfloat16", dict(causal=True)),
         ("causal yi", 2, 1024, H, KH, DH, "float32", dict(causal=True)),
@@ -256,9 +277,23 @@ def phase_a_attention(torch, ops, fa):
         ("gemma2 global", 2, 1000, G2_H, G2_KH, DH, "float32", G2_KW),
         ("gemma2 local", 2, 1000, G2_H, G2_KH, DH, "float32", dict(G2_KW, window=384)),
         ("mixtral", 2, 1000, MX_H, MX_KH, DH, "float32", dict(causal=True, window=384)),
+        # whisper-large-v3's heads (20 of 64, no GQA): the decoder's causal
+        # self-attention, the encoder's full attention over 1500 frames (the
+        # last 128-key tile holds 92) and the cross-attention, 224 queries
+        # against 1500 frames; bf16 on wgmma, fp32 on SIMT
+        ("whisper self", 2, WH_PROMPT, WH_H, WH_H, WH_DH, "bfloat16", dict(causal=True)),
+        ("whisper self", 2, WH_PROMPT, WH_H, WH_H, WH_DH, "float32", dict(causal=True)),
+        ("whisper enc", 2, WH_FRAMES, WH_H, WH_H, WH_DH, "bfloat16", full),
+        ("whisper enc", 2, WH_FRAMES, WH_H, WH_H, WH_DH, "float32", full),
+        ("whisper cross", 2, (WH_PROMPT, WH_FRAMES), WH_H, WH_H, WH_DH, "bfloat16", full),
+        ("whisper cross", 2, (WH_PROMPT, WH_FRAMES), WH_H, WH_H, WH_DH, "float32", full),
+        # Sq != Sk at the other wgmma head sizes
+        ("Sq!=Sk dh=128", 2, (300, 1000), 14, 2, DH, "bfloat16", full),
+        ("Sq!=Sk dh=256", 2, (1000, 333), RG_H, RG_KH, RG_DH, "bfloat16", full),
     ]
     for i, (name, B, S, h, kh, dh, dt, kw) in enumerate(cases):
-        q, k, v = qkv(B, S, h, kh, dh, getattr(torch, dt), seed=100 + i)
+        S, Sk = S if isinstance(S, tuple) else (S, S)
+        q, k, v = qkv(B, S, h, kh, dh, getattr(torch, dt), seed=100 + i, Sk=Sk)
         kind = fa.variant(q.dtype, dh)
         before = fa.flash_attention.launches_by_variant[kind]
         got = fa.flash_attention(q, k, v, **kw)
@@ -267,8 +302,8 @@ def phase_a_attention(torch, ops, fa):
             raise RuntimeError(f"K1 {name}: no launch of the {kind!r} kernel counted")
         want = ops.attention_ref(q, k, v, **kw)
         e = (got.float() - want.float()).abs().max().item()
-        print(f"[A] K1 {name:14s} B={B} S={S} H={h} K={kh} dh={dh} {dt:8s} {kind:5s} "
-              f"{kw}: max|err|={e:.3e} tol={TOL[dt]}")
+        print(f"[A] K1 {name:14s} B={B} S={S} Sk={Sk} H={h} K={kh} dh={dh} {dt:8s} "
+              f"{kind:5s} {kw}: max|err|={e:.3e} tol={TOL[dt]}")
         torch.testing.assert_close(got.float(), want.float(), **TOL[dt])
         del q, k, v, got, want
         free()
@@ -363,12 +398,12 @@ def check_logits(torch, tag, got, plain):
 
 
 def serve_model(torch, cfg, batch, prompt, counters, expected, phase="B", patches=False):
-    """Phase B (or E) for one model: serve it with every launch count set
+    """Phase B (E, F) for one model: serve it with every launch count set
     to 0 just before, check the counts (K2's by kernel: the prefill's
     staged, the decode steps' simple), windows, tokens and the
-    kernel-vs-plain prefill logits (with ``patches``, also of a prefill
-    with random vision-stub patches); returns the counts and the
-    timings."""
+    kernel-vs-plain prefill logits (an encoder-decoder's on the frames the
+    server drew; with ``patches``, also of a prefill with random
+    vision-stub patches); returns the counts and the timings."""
     from repro_torch.launch.serve import serve
     from repro_torch.models.transformer import PLAIN
 
@@ -419,8 +454,8 @@ def serve_model(torch, cfg, batch, prompt, counters, expected, phase="B", patche
     if not torch.isfinite(res.prefill_logits).all():
         raise RuntimeError("non-finite prefill logits")
     s_buf = prompt + ROUNDS * TOKENS
-    (plain_logits, _), plain_ms = timed(lambda: res.model.prefill(res.prompts, s_buf,
-                                                                  kernels=PLAIN))
+    (plain_logits, _), plain_ms = timed(lambda: res.model.prefill(
+        res.prompts, s_buf, kernels=PLAIN, frames=res.frames))
     check_logits(torch, f"{tag} {cfg.name} prefill logits", res.prefill_logits, plain_logits)
     if patches:
         g = torch.Generator(device="cuda").manual_seed(3)
@@ -434,8 +469,10 @@ def serve_model(torch, cfg, batch, prompt, counters, expected, phase="B", patche
             raise RuntimeError(f"{cfg.name}: the patches changed no logit")
         del pt, with_patches, plain_patches
     del plain_logits
-    warm_ms = cuda_ms(lambda: res.model.prefill(res.prompts, s_buf), iters=2, warmup=1)
-    out = dict(launches=launches, k2_by_variant=k2_by_variant, layers=cfg.n_layers,
+    warm_ms = cuda_ms(lambda: res.model.prefill(res.prompts, s_buf, frames=res.frames),
+                      iters=2, warmup=1)
+    out = dict(launches=launches, k1_by_variant=by_variant, k2_by_variant=k2_by_variant,
+               layers=cfg.n_layers,
                params_b=n_params / 1e9, weight_gb=weight_bytes / 1e9,
                prefill_ms=res.prefill_s * 1e3, tok_s=res.decode_tok_s,
                warm_ms=warm_ms, plain_ms=plain_ms, peak_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -464,6 +501,25 @@ def phase_e(torch, counters):
     return runs
 
 
+def phase_f(torch, counters):
+    """F: whisper-large-v3 through ``serve`` at published widths and full
+    depth (32 encoder and 32 decoder layers), bf16 weights from the seed,
+    batch WH_BATCH, prompt WH_PROMPT, WH_FRAMES random frames drawn by the
+    server: K1 once per encoder layer and twice per decoder layer (self-
+    and cross-attention) per prefill, all on "wgmma"; K2 and K3 never."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("whisper-large-v3"), param_dtype="bfloat16")
+    if cfg.encoder_seq != WH_FRAMES:
+        raise RuntimeError(f"whisper's encoder_seq {cfg.encoder_seq} != {WH_FRAMES}")
+    k1 = cfg.encoder_layers + 2 * cfg.n_layers
+    print(f"[F] {cfg.name}: {cfg.encoder_layers} encoder + {cfg.n_layers} decoder layers "
+          f"(full depth), published widths, {WH_FRAMES} frames; K1 expected {k1} per prefill")
+    return {cfg.name: serve_model(torch, cfg, WH_BATCH, WH_PROMPT, counters,
+                                  {"flash_attention": k1, "rglru_scan": 0, "wkv6": 0},
+                                  phase="F")}
+
+
 # Library yardsticks of K1, each ``(label, prepare)`` with ``prepare(q, k,
 # v) -> call`` and ``call() -> (B, H, S, dh)``; the port never calls them.
 
@@ -475,6 +531,17 @@ def sdpa_causal(torch):
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         return lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
     return "SDPA (is_causal, enable_gqa)", prepare
+
+
+def sdpa_full(torch):
+    """Non-causal attention with as many KV heads as query heads (whisper's
+    encoder and cross-attention): one SDPA call."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def prepare(q, k, v):
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        return lambda: sdpa(qt, kt, vt)
+    return "SDPA (non-causal)", prepare
 
 
 def sdpa_band(torch, window):
@@ -522,23 +589,25 @@ def flex_softcap(torch, softcap, scale, window=0):
     return f"compiled flex_attention (tanh softcap score_mod, causal{band} block mask)", prepare
 
 
-def time_k1(torch, fa, shape, kw, plain, library, rates, card, seed):
-    """C for K1 at one prefill shape ``(B, S, H, K, dh)``, bf16: the entry
-    point's kernel held against the plain version ``plain`` on the inputs
-    it is timed on (bf16 tolerance), its time, the SIMT kernel's beside it
-    (the time before wgmma), the plain version's, the bound (FLOPs of the
-    unmasked (q, k) pairs at the bf16 peak, or q, k, v and o once at HBM
-    bandwidth) and the library yardstick ``library`` (``(label,
-    prepare)``), whose output is held against the plain version too."""
+def time_k1(torch, fa, shape, kw, plain, library, rates, card, seed, Sk=None):
+    """C for K1 at one prefill shape ``(B, S, H, K, dh)`` (``Sk`` keys,
+    default S), bf16: the entry point's kernel held against the plain
+    version ``plain`` on the inputs it is timed on (bf16 tolerance), its
+    time, the SIMT kernel's beside it (the time before wgmma), the plain
+    version's, the bound (FLOPs of the unmasked (q, k) pairs at the bf16
+    peak, or q, k, v and o once at HBM bandwidth) and the library yardstick
+    ``library`` (``(label, prepare)``), whose output is held against the
+    plain version too."""
     B, S, h, kh, dh = shape
+    Sk = Sk or S
     peak_name, bf16_peak, bw_peak = rates
-    q, k, v = qkv(B, S, h, kh, dh, torch.bfloat16, seed=seed)
+    q, k, v = qkv(B, S, h, kh, dh, torch.bfloat16, seed=seed, Sk=Sk)
     kind = fa.variant(q.dtype, dh)
     opts = {key: (round(val, 6) if isinstance(val, float) else val) for key, val in kw.items()}
     want = plain(q, k, v, **kw).float()
     got = fa.flash_attention(q, k, v, **kw).float()
     err = (got - want).abs().max().item()
-    print(f"[C] K1 B={B} S={S} H={h} K={kh} dh={dh} bf16 {opts}: {kind} against the plain "
+    print(f"[C] K1 B={B} S={S} Sk={Sk} H={h} K={kh} dh={dh} bf16 {opts}: {kind} against the plain "
           f"version: max|err|={err:.3e} tol={TOL['bfloat16']}")
     torch.testing.assert_close(got, want, **TOL["bfloat16"])
     lib_label, lib_prepare = library
@@ -553,12 +622,15 @@ def time_k1(torch, fa, shape, kw, plain, library, rates, card, seed):
     simt_ms = cuda_ms(lambda: fa.launch("simt", q, k, v, **kw), iters=2, warmup=1)
     plain_ms = cuda_ms(lambda: plain(q, k, v, **kw), iters=2, warmup=1)
     window = kw.get("window", 0)
-    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S))
+    if kw.get("causal", True):   # the causal shapes have Sk == S
+        pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S))
+    else:
+        pairs = S * Sk
     flops = 4 * B * h * dh * pairs
-    nbytes = 2 * (2 * B * S * h * dh + 2 * B * S * kh * dh)
+    nbytes = 2 * (2 * B * S * h * dh + 2 * B * Sk * kh * dh)
     b_ms, b_by = bound(flops, nbytes, bf16_peak, bw_peak)
     library_ms = cuda_ms(call, iters=10)
-    print(f"[C] K1 flash_attention B={B} S={S} H={h} K={kh} dh={dh} bf16 {opts}: {kind} "
+    print(f"[C] K1 flash_attention B={B} S={S} Sk={Sk} H={h} K={kh} dh={dh} bf16 {opts}: {kind} "
           f"{ms:.4f} ms/call ({flops / ms / 1e9:.1f} TFLOP/s), simt {simt_ms:.4f} ms "
           f"({flops / simt_ms / 1e9:.1f} TFLOP/s); bound {b_ms:.4f} ms ({b_by}; "
           f"{flops / 1e9:.1f} GFLOP at {peak_name} {bf16_peak / 1e12:.0f} TFLOP/s bf16, "
@@ -802,6 +874,18 @@ def main() -> int:
              dict(causal=True, window=E_WINDOW), mha, sdpa_band(torch, E_WINDOW), 15)):
         rec["flash_attention"][key] = time_k1(torch, fa, shape, kw, plain, library, rates,
                                               card, seed=seed)
+    # whisper-large-v3's three K1 shapes at d_head 64 (phase F's prefill):
+    # the encoder (1500 frames on 1500), the cross-attention (224 queries on
+    # 1500 frames) and the decoder's causal self-attention
+    wh = (WH_BATCH, WH_FRAMES, WH_H, WH_H, WH_DH)
+    for key, shape, sk, kw, library, seed in (
+            ("at_whisper_encoder", wh, None, dict(causal=False), sdpa_full(torch), 16),
+            ("at_whisper_cross", (WH_BATCH, WH_PROMPT, WH_H, WH_H, WH_DH), WH_FRAMES,
+             dict(causal=False), sdpa_full(torch), 17),
+            ("at_whisper_self", (WH_BATCH, WH_PROMPT, WH_H, WH_H, WH_DH), None,
+             dict(causal=True), sdpa_causal(torch), 18)):
+        rec["flash_attention"][key] = time_k1(torch, fa, shape, kw, ops.attention_ref,
+                                              library, rates, card, seed=seed, Sk=sk)
 
     # K3 at rwkv6-3b's prefill shape
     args = wkv_inputs(RWKV_BATCH, RWKV_PROMPT, RWKV_H, RWKV_DH, torch.bfloat16, seed=9,
@@ -952,6 +1036,19 @@ def main() -> int:
     runs.update(e_runs)
     print(f"[E] passed; smoke ran {time.perf_counter() - t_start:.1f} s after the card check")
 
+    # -- F: whisper-large-v3, the encoder-decoder, through the serving path -------------
+    free()
+    f_runs = phase_f(torch, counters)
+    for name, r in f_runs.items():
+        print(f"[F] serving {name} ({r['layers']} decoder layers, {r['params_b']:.2f} B "
+              f"parameters, {r['weight_gb']:.2f} GB bf16), batch {WH_BATCH}, prompt "
+              f"{WH_PROMPT}, {WH_FRAMES} frames: cold prefill {r['prefill_ms']:.3f} ms (first "
+              f"call, host clock), warm prefill {r['warm_ms']:.3f} ms with the kernels, "
+              f"{r['plain_ms']:.3f} ms with the plain forms (CUDA events); decode "
+              f"{r['tok_s']:.1f} tok/s; peak memory {r['peak_gb']:.2f} GB | card: {card}")
+    runs.update(f_runs)
+    print(f"[F] passed; smoke ran {time.perf_counter() - t_start:.1f} s after the card check")
+
     def launches(name):
         return sum(r["launches"][name] for r in runs.values())
 
@@ -962,6 +1059,8 @@ def main() -> int:
              simt_source="src/repro_torch/csrc/flash_attention.cu",
              replaces="src/repro/kernels/flash_attention.py:35",
              launches=launches("flash_attention"), launches_by_path=by_path("flash_attention"),
+             launches_by_variant={kind: sum(r["k1_by_variant"][kind] for r in runs.values())
+                                  for kind in fa.ENTRIES},
              **rec["flash_attention"]),
         dict(name="rglru_scan", route="cuda", source="src/repro_torch/csrc/rglru_scan.cu",
              replaces="src/repro/kernels/rglru_scan.py:27",

@@ -1,7 +1,5 @@
-"""Architecture registry of the port: the architectures whose block kinds
-the torch model implements.  Mirrors ``get_config`` / ``reduced_config`` of
-the JAX package's registry; whisper-large-v3 lands with the slice that
-ports the encoder-decoder stack.
+"""Architecture registry of the port: all ten architectures of the JAX
+package.  Mirrors ``get_config`` / ``reduced_config`` of its registry.
 """
 from __future__ import annotations
 
@@ -21,12 +19,13 @@ ARCH_MODULES = {
     "yi-34b": "yi_34b",
     "rwkv6-3b": "rwkv6_3b",
     "pixtral-12b": "pixtral_12b",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 
 def get_config(name: str) -> ModelConfig:
     if name not in ARCH_MODULES:
-        raise KeyError(f"architecture {name!r} is not ported yet; "
+        raise KeyError(f"unknown architecture {name!r}; "
                        f"choose from {sorted(ARCH_MODULES)}")
     mod = importlib.import_module(f"repro_torch.configs.{ARCH_MODULES[name]}")
     return mod.CONFIG

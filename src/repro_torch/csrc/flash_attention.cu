@@ -7,8 +7,8 @@
 // accumulator), p rounded to v's type before the PV product, and rows whose
 // every key is masked giving 0.
 //
-// Serves fp32 at every head size and bf16 at d_head 16, 32 and 64 only:
-// bf16 at d_head 128 and 256, the serving path's shapes, goes to the
+// Serves fp32 at every head size and bf16 at d_head 16 and 32 only: bf16
+// at d_head 64, 128 and 256, the serving path's shapes, goes to the
 // tensor-core kernel csrc/flash_attention_sm90.cu (the wrapper's variant()
 // chooses by dtype and head size).
 //

@@ -1,5 +1,5 @@
 // Flash attention forward on Hopper's tensor cores (sm_90a): bf16 q/k/v/o
-// at d_head 128 and 256.  Plain C interface for ctypes.
+// at d_head 64, 128 and 256.  Plain C interface for ctypes.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention.py:35
 // (_flash_kernel), with the GQA head expansion of ops.attention folded in
@@ -15,11 +15,14 @@
 // dh=128, causal) 4*B*H*dh*S(S+1)/2 = 240.6 GFLOP, 0.243 ms at the H100
 // SXM's 989 TFLOP/s bf16 dense peak; q/k/v/o are 0.27 GB, 0.08 ms at 3.35
 // TB/s.  At recurrentgemma-9b's (B=2, S=4096, H=16, K=1, dh=256, window
-// 2048) 206.2 GFLOP, 0.209 ms.  So the products must run on the tensor
-// cores, which only wgmma drives at full rate.
+// 2048) 206.2 GFLOP, 0.209 ms.  At whisper-large-v3's encoder (B=16,
+// Sq=Sk=1500, H=K=20, dh=64, non-causal) 4*B*H*dh*Sq*Sk = 184.3 GFLOP,
+// 0.186 ms; its cross-attention (Sq=224, Sk=1500) moves 0.14 GB, 0.042 ms
+// at 3.35 TB/s, against 27.5 GFLOP, 0.028 ms.  So the products must run on
+// the tensor cores, which only wgmma drives at full rate.
 //
 // Design.  One CTA per (b*h, q tile) of one producer warp and 64-row
-// consumer warpgroups (a wgmma's M): two at dh 128, one at dh 256.
+// consumer warpgroups (a wgmma's M): two at dh 64 and 128, one at dh 256.
 // - The producer warp's lane 0 loads the CTA's q tile once and each K/V
 //   tile into a 2-stage ring by TMA (4-D tensor maps over (dh, heads, S,
 //   B), encoded per call from the wrapper's pointers and strides, 128-byte
@@ -60,12 +63,17 @@
 // softmax with the other's products.  dh 256 takes one warpgroup (64-row q
 // tiles) and 64-key tiles: q 32 KB + 2 x 64 KB = 160 KB, O 128 + S 32 + P
 // 16; two warpgroups there spilled at the 168-register cap.  160 KB allows
-// one CTA per SM either way.
+// one CTA per SM either way.  dh 64 is dh 128's schedule on one 128-byte
+// slab: 128-row q tiles, 128-key tiles, q 16 KB + 2 x (K 16 + V 16) = 80
+// KB, O 32 + S 64 + P 32 registers; QK^T is m64n128k16 in 4 k-steps, PV
+// m64n64k16 with A from registers.  Two such CTAs would fit in shared
+// memory but not in the registers (at most 112 a thread for 576 threads),
+// so it stays at one CTA per SM too.
 //
 // Left for later: a warp-specialised producer warpgroup with setmaxnreg, a
 // persistent schedule for the causal imbalance, ping-pong between the two
 // consumer warpgroups and overlap of the softmax with the next tile's QK^T
-// inside a warpgroup, d_head 64 on wgmma, and the backward kernel.
+// inside a warpgroup, and the backward kernel.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -79,10 +87,10 @@ constexpr int STAGES = 2;   // K/V ring depth
 constexpr int ROW = 128;    // bytes of one row of a 64-column slab (the swizzle width)
 
 template <int DH> struct Tiles {
-  static constexpr int NWG = DH == 128 ? 2 : 1;      // consumer warpgroups, 64 query rows each
+  static constexpr int NWG = DH == 256 ? 1 : 2;      // consumer warpgroups, 64 query rows each
   static constexpr int BQ = 64 * NWG;                // query rows per CTA
   static constexpr int NT = 128 * NWG + 32;          // + one producer warp
-  static constexpr int BK = DH == 128 ? 128 : 64;    // keys per K/V tile
+  static constexpr int BK = DH == 256 ? 64 : 128;    // keys per K/V tile
   static constexpr int NSLAB = DH / 64;              // 128-byte column slabs
   static constexpr int Q_SLAB = BQ * ROW;            // bytes of one q slab
   static constexpr int KV_SLAB = BK * ROW;           // bytes of one K or V slab
@@ -91,7 +99,7 @@ template <int DH> struct Tiles {
   static constexpr int V_OFF = K_OFF + STAGES * KV_TILE;
   static constexpr int BAR_OFF = V_OFF + STAGES * KV_TILE;
   static constexpr int SMEM = BAR_OFF + 64 + 1024;   // barriers + 1024 B alignment slack
-  static_assert(DH == 128 || DH == 256, "wgmma variant: d_head 128 or 256");
+  static_assert(DH == 64 || DH == 128 || DH == 256, "wgmma variant: d_head 64, 128 or 256");
   static_assert(SMEM <= 232448, "more shared memory than a block may have");
 };
 
@@ -222,6 +230,23 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t d
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// D(64 x 64) (+)= A(64 x 16, registers) * B(16 x 64, smem, MN-major: transposed)
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0, uint32_t a1,
+                                         uint32_t a2, uint32_t a3, uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, "
+      "%17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1; "
+      "\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(accumulate));
 }
 
 // D(64 x 128) (+)= A(64 x 16, registers) * B(16 x 128, smem, MN-major: transposed)
@@ -567,7 +592,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o, int B, 
 // The arguments and the return value of flash_attention_fwd
 // (csrc/flash_attention.cu): q, o (B, Sq, H, dh); k, v (B, Sk, KH, dh);
 // strides in elements, the last dimension contiguous.  Takes is_bf16 = 1
-// and dh 128 or 256 only, 16-byte aligned pointers and strides (TMA);
+// and dh 64, 128 or 256 only, 16-byte aligned pointers and strides (TMA);
 // returns the cudaError_t of encoding the tensor maps and of the launch
 // (cudaErrorSymbolNotFound if the driver has no cuTensorMapEncodeTiled).
 extern "C" int flash_attention_sm90_fwd(
@@ -578,7 +603,7 @@ extern "C" int flash_attention_sm90_fwd(
     long long v_sb, long long v_ss, long long v_sh,
     long long o_sb, long long o_ss, long long o_sh,
     float scale, int causal, int window, float softcap, void* stream) {
-  if (!is_bf16 || (dh != 128 && dh != 256)) return (int)cudaErrorInvalidValue;
+  if (!is_bf16 || (dh != 64 && dh != 128 && dh != 256)) return (int)cudaErrorInvalidValue;
   if (KH <= 0 || H % KH != 0 || Sq <= 0 || Sk <= 0 || B <= 0) return (int)cudaErrorInvalidValue;
   const long long st[12] = {q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                             v_sb, v_ss, v_sh, o_sb, o_ss, o_sh};
@@ -589,6 +614,9 @@ extern "C" int flash_attention_sm90_fwd(
   if ((long long)B * H > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const Params p{H, KH, Sq, Sk, scale, softcap, causal, window};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(dh == 128 ? launch<128>(q, k, v, o, B, H, KH, Sq, Sk, st, p, s)
-                         : launch<256>(q, k, v, o, B, H, KH, Sq, Sk, st, p, s));
+  switch (dh) {
+    case 64: return (int)launch<64>(q, k, v, o, B, H, KH, Sq, Sk, st, p, s);
+    case 128: return (int)launch<128>(q, k, v, o, B, H, KH, Sq, Sk, st, p, s);
+    default: return (int)launch<256>(q, k, v, o, B, H, KH, Sq, Sk, st, p, s);
+  }
 }

@@ -1,6 +1,7 @@
 """Device resolution for the port's entry points.
 
-Entry points run on the card unless the caller asks for the host: a
+Entry points run on the card unless the caller asks for the host (or for
+``"meta"``, which builds a model's parameters as shapes only): a
 ``"cuda"`` request needs a Hopper-class device (compute capability 9.0 or
 newer, the sm_90a target the kernels are built for) and raises otherwise;
 there is no silent fallback to the CPU.
@@ -16,7 +17,7 @@ MIN_CAPABILITY = (9, 0)
 
 def resolve_device(name: Union[str, torch.device] = "cuda") -> torch.device:
     dev = torch.device(name)
-    if dev.type == "cpu":
+    if dev.type in ("cpu", "meta"):   # meta: shapes only, nothing to run
         return dev
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {str(dev)!r}; use 'cuda' or 'cpu'")

@@ -4,11 +4,11 @@ Both kernels replace ``repro/kernels/flash_attention.py::_flash_kernel``;
 the notes in their sources give their bounds and designs.  :func:`variant`
 chooses one by dtype and head size alone:
 
-- ``"wgmma"`` (``csrc/flash_attention_sm90.cu``): bf16 at d_head 128 and
-  256, the serving path's shapes — QK^T and PV on the tensor cores, K/V
-  tiles loaded by TMA;
-- ``"simt"`` (``csrc/flash_attention.cu``): fp32, and the other head sizes,
-  on the fp32 pipes.
+- ``"wgmma"`` (``csrc/flash_attention_sm90.cu``): bf16 at d_head 64, 128
+  and 256, the serving path's shapes (whisper's 64; the decoder LMs' 128
+  and 256) — QK^T and PV on the tensor cores, K/V tiles loaded by TMA;
+- ``"simt"`` (``csrc/flash_attention.cu``): fp32, and bf16 at d_head 16 and
+  32, on the fp32 pipes.
 
 This wrapper takes the model's layout directly — q ``(B, Sq, H, dh)``, k/v
 ``(B, Sk, K, dh)`` with ``H % K == 0`` — and passes strides, so GQA heads
@@ -32,7 +32,7 @@ from . import _build
 
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 SUPPORTED_HEAD_DIMS = (16, 32, 64, 128, 256)
-WGMMA_HEAD_DIMS = (128, 256)
+WGMMA_HEAD_DIMS = (64, 128, 256)
 MAX_GRID_Y = 65535
 
 _P = ctypes.c_void_p
@@ -53,7 +53,7 @@ C_ENTRIES = {entry: ARGTYPES for _, entry in ENTRIES.values()}
 
 def variant(dtype: torch.dtype, dh: int) -> str:
     """The kernel that takes q/k/v of this dtype and head size: ``"wgmma"``
-    for bf16 at d_head 128 or 256, ``"simt"`` otherwise."""
+    for bf16 at d_head 64, 128 or 256, ``"simt"`` otherwise."""
     return "wgmma" if dtype == torch.bfloat16 and dh in WGMMA_HEAD_DIMS else "simt"
 
 

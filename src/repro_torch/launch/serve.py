@@ -2,7 +2,7 @@
 analysis and window-adaptive policies.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \
-        [--arch mixtral-8x7b|gemma2-27b|yi-34b|rwkv6-3b|...] \
+        [--arch mixtral-8x7b|gemma2-27b|yi-34b|whisper-large-v3|...] \
         [--tokens 8] [--rounds 3] [--schema paper|tpu] [--policies all] \
         [--device cuda|cpu] [--full-width] [--n-layers N]
 
@@ -20,7 +20,12 @@ region, so on the card it measures device time, not launch time.
 
 The model is the reduced config of ``--arch`` unless ``--full-width``
 asks for the published widths; ``--n-layers`` cuts the depth.  Weights and
-prompts are random, drawn from a fixed seed.
+prompts are random, drawn from a fixed seed.  An encoder-decoder
+(whisper-large-v3) also draws its audio stub's frame embeddings, (batch,
+encoder_seq, d_model) in the compute dtype, from the prompts' generator;
+its prefill runs the encoder and the decoder's cross-attention (through
+the flash-attention kernel on the card), and its decode steps attend to
+the cross cache the prefill kept.
 """
 from __future__ import annotations
 
@@ -39,6 +44,7 @@ from repro_torch.core import (AnalysisSession, AsyncAnalysisSession,
                               make_policies)
 from repro_torch.device import device_label, resolve_device, synchronize
 from repro_torch.models import Model, ModelConfig, init_params
+from repro_torch.models.layers import torch_dtype
 from repro_torch.perfdbg import Instrumenter, RegionRecorder
 
 
@@ -46,6 +52,7 @@ from repro_torch.perfdbg import Instrumenter, RegionRecorder
 class ServeResult:
     model: Model
     prompts: torch.Tensor         # (batch, prompt_len) int64
+    frames: Optional[torch.Tensor]  # (batch, encoder_seq, d_model), encoder-decoders only
     prefill_logits: torch.Tensor  # (batch, 1, vocab) fp32, last prompt position
     tokens: np.ndarray            # (batch, 1 + rounds * tokens) greedy tokens
     tree: RegionTree
@@ -66,7 +73,8 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
           sync_analysis: bool = False, device: str = "cuda") -> ServeResult:
     """Serve ``rounds`` decode rounds of ``tokens`` tokens for ``batch``
     random prompts of ``prompt_len`` tokens; one analysis window per round.
-    Weights and prompts are drawn from seed 0, as the reference's are."""
+    Weights are drawn from seed 0, as the reference's are, prompts (and an
+    encoder-decoder's frames) from seed 1."""
     if rounds < 1 or tokens < 1:
         raise ValueError("rounds and tokens must be >= 1")
     dev = resolve_device(device)
@@ -74,6 +82,10 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
     gen = torch.Generator(device=dev).manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             generator=gen, device=dev)
+    frames = None
+    if cfg.is_encdec:
+        frames = torch.randn((batch, cfg.encoder_seq, cfg.d_model), generator=gen,
+                             device=dev).to(torch_dtype(cfg.compute_dtype))
     s_buf = prompt_len + rounds * tokens
 
     tree = RegionTree("serve")
@@ -116,7 +128,8 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
                     w0 = time.perf_counter()
                     with ins.region("prefill", instructions=2 * cfg.active_params()
                                     * prompts.numel()):
-                        prefill_logits, cache = model.prefill(prompts, s_buf)
+                        prefill_logits, cache = model.prefill(prompts, s_buf,
+                                                              frames=frames)
                         synchronize(dev)
                     prefill_s = time.perf_counter() - w0
                     out_tokens.append(prefill_logits[:, -1:].argmax(-1))
@@ -155,7 +168,7 @@ def serve(cfg: ModelConfig, *, batch: int = 4, prompt_len: int = 32,
               f"({len(engine.log.fired())} fired, "
               f"{len(actions)} action(s) collected)")
     seqs = np.concatenate([t.cpu().numpy() for t in out_tokens], axis=1)
-    result = ServeResult(model=model, prompts=prompts,
+    result = ServeResult(model=model, prompts=prompts, frames=frames,
                          prefill_logits=prefill_logits, tokens=seqs, tree=tree,
                          report=report, prefill_s=prefill_s, decode_s=decode_s,
                          decode_tokens=batch * rounds * tokens)

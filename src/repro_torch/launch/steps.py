@@ -45,14 +45,16 @@ def state_for(model: Model, opt_cfg: adamw.AdamWConfig) -> State:
 
 def value_and_grad(model: Model, batch: Batch,
                    remat: bool = True) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(loss, {parameter name: gradient}) of ``models.model.loss_fn``; the
-    parameters are made to take gradients."""
+    """(loss, {parameter name: gradient}) of ``models.model.loss_fn`` on
+    ``batch`` ({"tokens", "labels"}, and "patches" or "frames" where the
+    model takes them); the parameters are made to take gradients."""
     named = dict(model.named_parameters())
     for p in named.values():
         p.requires_grad_(True)
     # the vision stub's patch_proj is the one parameter a batch may not
     # reach (no "patches"): it gets zeros, as jax.grad gives it; every
-    # other parameter must be reached, or autograd raises
+    # other parameter must be reached, or autograd raises (an
+    # encoder-decoder's frame_proj is reached by the "frames" it requires)
     unreached = ([n for n in named if n.startswith("patch_proj.")]
                  if batch.get("patches") is None else [])
     wrt = [n for n in named if n not in unreached]

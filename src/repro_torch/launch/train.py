@@ -23,6 +23,10 @@ engine; fired rebalance/reshard actions act on the simulated pod
 Training runs the plain forms the reference trains with; none of the
 port's kernels (which have no backward) is launched.
 
+whisper-large-v3 is refused before the first step: the data pipeline gives
+token batches only, and an encoder-decoder needs frame embeddings beside
+them (the reference's trainer fails for want of them as well).
+
 Not ported yet, each refused with an error naming its slice:
 ``--pod-gather``, and ``--chaos-seed`` with ``--chaos-hosts``
 (``launch/collect`` and ``perfdbg/chaos``), ``--costs hlo`` (per-region
@@ -253,6 +257,11 @@ def parse_args(argv=None):
         ap.error(NOT_PORTED["costs_hlo"])
     if args.diagnosis == "learned":
         ap.error(NOT_PORTED["learned"])
+    if get_config(args.arch).is_encdec:
+        ap.error(f"--arch {args.arch}: an encoder-decoder trains on frame "
+                 "embeddings beside its tokens, and the synthetic data "
+                 "pipeline gives tokens only (the reference's trainer fails "
+                 "for want of frames too)")
     return args
 
 

@@ -13,13 +13,15 @@ dtype, fp32 logits.
 kernel, and what training runs under autograd, as the reference trains
 with its jnp ``mha``); it never pads heads, which the reference does only
 to make the head count divide a TPU mesh axis — zero heads change no
-output.  ``attention_block`` is the training block: projections, rope,
-``mha``, out-projection.
+output.  ``attention_block`` is the attention of a block without a cache:
+projections, rope, the attention function it is given (``mha`` unless a
+kernel's entry point is passed), out-projection; with ``encoder_out`` it is
+the decoder's cross-attention, whose K and V come from the encoder.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -222,21 +224,32 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attention_block(p: Attention, x: torch.Tensor, cfg, *,
                     positions: torch.Tensor, window: int = 0,
-                    causal: bool = True) -> torch.Tensor:
-    """Projection + attention (plain ``mha``) + out-projection: the
-    training block.  Cross-attention (``encoder_out``) lands with the
-    encoder-decoder slice."""
+                    encoder_out: Optional[torch.Tensor] = None,
+                    causal: bool = True,
+                    attention: Callable[..., torch.Tensor] = mha,
+                    return_kv: bool = False):
+    """Projection + (optionally cross-) attention + out-projection.
+
+    With ``encoder_out`` (B, Se, d) K and V are projected from it, with no
+    rope and no causal mask: the decoder's cross-attention.  ``attention``
+    takes q (B, S, H, dh) and k, v (B, Sk, K, dh), each contiguous as the
+    kernel's wrapper demands: ``mha`` (training) or ``ops.attention`` (a
+    serving forward).  With ``return_kv`` also returns k and v, which a
+    prefill keeps as the cross cache."""
     B, S, _ = x.shape
     H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    kv_src = x if encoder_out is None else encoder_out
     q = apply_linear(p.wq, x).reshape(B, S, H, dh)
-    k = apply_linear(p.wk, x).reshape(B, S, K, dh)
-    v = apply_linear(p.wv, x).reshape(B, S, K, dh)
-    if cfg.use_rope:
+    k = apply_linear(p.wk, kv_src).reshape(B, kv_src.shape[1], K, dh)
+    v = apply_linear(p.wv, kv_src).reshape(B, kv_src.shape[1], K, dh)
+    if cfg.use_rope and encoder_out is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
-    out = mha(q, k, v, causal=causal, window=window, softcap=cfg.attn_softcap,
-              scale=cfg.query_scale, pad_heads=cfg.pad_heads)
-    return apply_linear(p.wo, out.reshape(B, S, H * dh))
+    out = attention(q, k, v, causal=causal and encoder_out is None,
+                    window=window, softcap=cfg.attn_softcap,
+                    scale=cfg.query_scale)
+    y = apply_linear(p.wo, out.reshape(B, S, H * dh))
+    return (y, k, v) if return_kv else y
 
 
 # ---------------------------------------------------------------------------
@@ -294,6 +307,18 @@ def attention_decode(p: Attention, x: torch.Tensor,
                      scale=cfg.query_scale)
     y = apply_linear(p.wo, out.reshape(B, 1, H * dh))
     return y, cache
+
+
+def cross_attention_decode(p: Attention, x: torch.Tensor,
+                           cache: Dict[str, torch.Tensor], cfg) -> torch.Tensor:
+    """One token's cross-attention against the prefill's cross cache
+    {"cross_k", "cross_v"}: (B, Se, K, dh), all ``Se`` keys valid."""
+    B = x.shape[0]
+    H, dh = cfg.n_heads, cfg.d_head
+    q = apply_linear(p.wq, x).reshape(B, 1, H, dh)
+    k, v = cache["cross_k"], cache["cross_v"]
+    out = mha_decode(q, k, v, k_len=k.shape[1], scale=cfg.query_scale)
+    return apply_linear(p.wo, out.reshape(B, 1, H * dh))
 
 
 # ---------------------------------------------------------------------------

@@ -1,9 +1,13 @@
 """Model API of the port: parameters, init, loss, prefill and decode.
 
 Counterpart of ``repro/models/model.py`` for decoder-only models (dense,
-MoE, hybrid RG-LRU and RWKV-6 stacks) and the vision stub (pixtral: the
-projected patch embeddings replace the first ``n_patches`` positions).
-``forward`` / ``chunked_loss`` / ``loss_fn`` are the training path under
+MoE, hybrid RG-LRU and RWKV-6 stacks), the vision stub (pixtral: the
+projected patch embeddings replace the first ``n_patches`` positions) and
+the encoder-decoder with the audio stub (whisper: precomputed frame
+embeddings ``(B, encoder_seq, d_model)`` go through ``frame_proj``,
+sinusoidal positions and the encoder stack, whose output the decoder's
+cross-attention reads).  ``forward`` / ``chunked_loss`` / ``loss_fn`` are
+the training path under
 autograd; ``Model.prefill`` / ``Model.decode_step`` mirror ``prefill`` /
 ``decode_step`` of the reference; ``init_params`` draws every parameter
 from one ``torch.Generator`` with the reference's init rules (normal times
@@ -29,34 +33,33 @@ from .transformer import (KERNELS, Block, Cache, Kernels, run_stack,
 LOSS_CHUNK = 512  # sequence-chunked cross-entropy (bounds logits memory)
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for features whose slice has not landed (the model would
-    otherwise silently compute something else)."""
-    missing = [name for name, on in (
-        ("encoder-decoder", cfg.is_encdec),
-        ("audio frontend", cfg.frontend == "audio_stub")) if on]
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} not "
-                                  "ported yet (later slices of the port)")
-
-
 class Model(nn.Module):
-    """Decoder-only LM (with ``patch_proj`` for the vision stub).
-    Parameters are uninitialized until :func:`init_params` or
-    ``params.from_jax_params`` fills them."""
+    """The LM: decoder ``layers`` (with ``patch_proj`` for the vision
+    stub; for an encoder-decoder also ``enc_layers``, plain ``"global"``
+    blocks, ``enc_norm`` and ``frame_proj``, and a cross-attention in every
+    decoder block).  On the card unless ``device`` is ``"cpu"``
+    (``device.resolve_device``: no fallback).  Parameters are
+    uninitialized until :func:`init_params` or ``params.from_jax_params``
+    fills them."""
 
-    def __init__(self, cfg: ModelConfig, device: Union[str, torch.device] = "cpu"):
+    def __init__(self, cfg: ModelConfig, device: Union[str, torch.device] = "cuda"):
         super().__init__()
-        check_supported(cfg)
+        device = resolve_device(device)
         dtype = torch_dtype(cfg.param_dtype)
         self.cfg = cfg
         self.embed = Embed(cfg.vocab_size, cfg.d_model, dtype, device)
-        self.layers = nn.ModuleList(Block(cfg, kind, device)
+        self.layers = nn.ModuleList(Block(cfg, kind, device, cross=cfg.is_encdec)
                                     for kind in cfg.layer_kinds)
         self.final_norm = Norm(cfg.d_model, cfg.norm, dtype, device)
         self.logits = (None if cfg.tie_embeddings else
                        Linear(cfg.d_model, cfg.vocab_size, dtype=dtype,
                               device=device))
+        if cfg.is_encdec:
+            self.enc_layers = nn.ModuleList(Block(cfg, "global", device)
+                                            for _ in range(cfg.encoder_layers))
+            self.enc_norm = Norm(cfg.d_model, cfg.norm, dtype, device)
+            self.frame_proj = Linear(cfg.d_model, cfg.d_model, dtype=dtype,
+                                     device=device)
         if cfg.frontend == "vision_stub":
             self.patch_proj = Linear(cfg.d_model, cfg.d_model, dtype=dtype,
                                      device=device)
@@ -64,15 +67,22 @@ class Model(nn.Module):
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, s_buf: int,
                 kernels: Kernels = KERNELS,
-                patches: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Cache]:
+                patches: Optional[torch.Tensor] = None,
+                frames: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, Cache]:
         """tokens (B, S) -> (last-position logits (B, 1, V) fp32, decode
         cache with ``s_buf`` slots per attention layer).  ``kernels``:
         ``transformer.KERNELS`` (the serving path) or ``PLAIN``;
-        ``patches``: the vision stub's (B, n_patches, d_model) embeddings."""
+        ``patches``: the vision stub's (B, n_patches, d_model) embeddings;
+        ``frames``: an encoder-decoder's (B, encoder_seq, d_model) frame
+        embeddings, which it requires.  The encoder runs here, its
+        attention through ``kernels`` too, and each decoder layer's cache
+        also keeps its cross-attention's K/V (``cross_k``, ``cross_v``)."""
         cfg = self.cfg
         x = _embed_inputs(self, tokens, patches)
+        enc = _encode(self, frames, kernels) if cfg.is_encdec else None
         pos = torch.arange(tokens.shape[1], device=tokens.device)
-        x, cache = run_stack_prefill(self.layers, x, cfg, pos, s_buf, kernels)
+        x, cache = run_stack_prefill(self.layers, x, cfg, pos, s_buf, kernels,
+                                     encoder_out=enc)
         x = apply_norm(self.final_norm, x, cfg.norm)
         return apply_logits(self.logits, self.embed, x[:, -1:], cfg), cache
 
@@ -81,7 +91,8 @@ class Model(nn.Module):
                     kernels: Kernels = KERNELS) -> Tuple[torch.Tensor, Cache]:
         """One-token decode: tokens (B, 1) at position ``pos`` -> (logits
         (B, 1, V), cache).  The cache is updated in place (the reference
-        returns a new one) and returned."""
+        returns a new one) and returned; an encoder-decoder's
+        cross-attention reads the prefill's encoder K/V from it."""
         cfg = self.cfg
         x = apply_embed(self.embed, tokens, cfg)
         if not cfg.use_rope:
@@ -104,19 +115,42 @@ def _embed_inputs(model: Model, tokens: torch.Tensor,
     return x
 
 
+def _encode(model: Model, frames: Optional[torch.Tensor],
+            kernels: Optional[Kernels] = None, remat: bool = True) -> torch.Tensor:
+    """The encoder: ``frame_proj`` of the frames (in the compute dtype, as
+    the reference's ``input_specs`` gives them), sinusoidal positions, the
+    encoder stack without a causal mask, ``enc_norm``.  Through
+    ``kernels``' attention on the serving path; the plain ``mha`` under
+    autograd (``kernels`` None) in training."""
+    cfg = model.cfg
+    if frames is None:
+        raise ValueError(f"{cfg.name} is an encoder-decoder: it takes frames "
+                         f"(B, {cfg.encoder_seq}, {cfg.d_model}) beside the tokens")
+    x = apply_linear(model.frame_proj, frames.to(torch_dtype(cfg.compute_dtype)))
+    x = x + sinusoidal(frames.shape[1], cfg.d_model, device=x.device).to(x.dtype)[None]
+    pos = torch.arange(frames.shape[1], device=frames.device)
+    x = run_stack(model.enc_layers, x, cfg, pos, causal=False, remat=remat,
+                  kernels=kernels)
+    return apply_norm(model.enc_norm, x, cfg.norm)
+
+
 # ---------------------------------------------------------------------------
 # Forward / loss (training, under autograd)
 # ---------------------------------------------------------------------------
 
 def forward(model: Model, tokens: torch.Tensor,
             patches: Optional[torch.Tensor] = None,
+            frames: Optional[torch.Tensor] = None,
             remat: bool = True) -> torch.Tensor:
     """Final hidden states (B, S, d); the logits are computed chunked
-    inside the loss to bound memory."""
+    inside the loss to bound memory.  An encoder-decoder requires
+    ``frames``."""
+    cfg = model.cfg
     x = _embed_inputs(model, tokens, patches)
+    enc = _encode(model, frames, remat=remat) if cfg.is_encdec else None
     pos = torch.arange(tokens.shape[1], device=tokens.device)
-    x = run_stack(model.layers, x, model.cfg, pos, remat=remat)
-    return apply_norm(model.final_norm, x, model.cfg.norm)
+    x = run_stack(model.layers, x, cfg, pos, encoder_out=enc, remat=remat)
+    return apply_norm(model.final_norm, x, cfg.norm)
 
 
 def chunked_loss(model: Model, hidden: torch.Tensor,
@@ -149,9 +183,10 @@ def chunked_loss(model: Model, hidden: torch.Tensor,
 def loss_fn(model: Model, batch: Dict[str, torch.Tensor],
             remat: bool = True) -> torch.Tensor:
     """Next-token cross-entropy of ``batch`` ({"tokens", "labels"}: (B, S)
-    integer tensors; optional "patches" for the vision stub)."""
+    integer tensors; "patches" for the vision stub, optional; "frames"
+    for an encoder-decoder)."""
     hidden = forward(model, batch["tokens"], patches=batch.get("patches"),
-                     remat=remat)
+                     frames=batch.get("frames"), remat=remat)
     return chunked_loss(model, hidden, batch["labels"])
 
 

@@ -6,8 +6,11 @@ checkpoints flatten that tree by keypath, joining dict keys and tuple
 indices with ``/`` (``ckpt/checkpoint.py``).  :func:`from_jax_params`
 takes such a flat ``{keypath: numpy array}`` mapping, unstacks the layer
 axis (a MoE block's ``moe/wi`` is an ``(n, E, d, f)`` stack like any other
-layer leaf), and loads each slice into the port's module of the same name
-(top-level leaves such as ``patch_proj/w`` keep their place).  No
+layer leaf; an encoder-decoder's encoder is stacked likewise under
+``enc_groups/0/pos0/...``, its decoder blocks' cross-attention under
+``groups/0/pos0/cross/...``), and loads each slice into the port's module
+of the same name (top-level leaves such as ``patch_proj/w``,
+``frame_proj/w`` and ``enc_norm/scale`` keep their place).  No
 array is transposed: the port keeps the reference's ``(d_in, d_out)``
 weight layout.  Arrays of numpy's ``bfloat16`` extension dtype are taken
 bit for bit.  :func:`to_jax_params` is the inverse: it restacks the port's
@@ -36,19 +39,21 @@ def _to_tensor(a: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
-def _port_name(keypath: str, layer_offset: Dict[int, int],
-              unit_len: Dict[int, int], rep: int) -> str:
-    """Name in ``Model.state_dict()`` of repetition ``rep`` of a stacked
-    reference keypath (``groups/<g>/pos<i>/<rest>``)."""
-    _, g, pos, rest = keypath.split("/", 3)
-    layer = layer_offset[int(g)] + rep * unit_len[int(g)] + int(pos[3:])
-    return f"layers.{layer}.{rest.replace('/', '.')}"
+def _stacks(cfg: ModelConfig) -> Tuple[Tuple[str, str, Tuple], ...]:
+    """(reference prefix, port prefix, group layout) of each layer stack:
+    the decoder's ``groups`` / ``layers``, and an encoder-decoder's
+    ``enc_groups`` / ``enc_layers`` (one group of plain ``"global"``
+    blocks, as the reference's ``param_specs`` stacks them)."""
+    out = [("groups", "layers", group_meta(cfg))]
+    if cfg.is_encdec:
+        out.append(("enc_groups", "enc_layers", ((("global",), cfg.encoder_layers),)))
+    return tuple(out)
 
 
-def _layer_index(cfg: ModelConfig) -> Dict[int, Tuple[int, int, int]]:
-    """Port layer -> (group, repetition, position in the unit)."""
+def _layer_index(meta) -> Dict[int, Tuple[int, int, int]]:
+    """Layer of a stack -> (group, repetition, position in the unit)."""
     out, start = {}, 0
-    for g, (unit, n) in enumerate(group_meta(cfg)):
+    for g, (unit, n) in enumerate(meta):
         for r in range(n):
             for i in range(len(unit)):
                 out[start + r * len(unit) + i] = (g, r, i)
@@ -69,16 +74,19 @@ def to_jax_layout(cfg: ModelConfig,
                   named: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
     """``{port parameter name: tensor}`` -> ``{reference keypath: numpy
     array}``, the layers of each group stacked on a leading axis
-    (``layers.3.attn.wq.w`` -> ``groups/0/pos0/attn/wq/w[3]``).  Arrays are
-    copies.  A bfloat16 tensor raises ``NotImplementedError``."""
-    index = _layer_index(cfg)
+    (``layers.3.attn.wq.w`` -> ``groups/0/pos0/attn/wq/w[3]``,
+    ``enc_layers.1.mlp.wi.w`` -> ``enc_groups/0/pos0/mlp/wi/w[1]``).
+    Arrays are copies.  A bfloat16 tensor raises ``NotImplementedError``."""
+    index = {port: (ref, _layer_index(meta)) for ref, port, meta in _stacks(cfg)}
     stacks: Dict[str, Dict[int, torch.Tensor]] = {}
     flat: Dict[str, np.ndarray] = {}
     for name, t in named.items():
-        if name.startswith("layers."):
-            _, layer, rest = name.split(".", 2)
-            g, r, i = index[int(layer)]
-            key = f"groups/{g}/pos{i}/{rest.replace('.', '/')}"
+        head, _, tail = name.partition(".")
+        if head in index:
+            layer, rest = tail.split(".", 1)
+            ref, layers = index[head]
+            g, r, i = layers[int(layer)]
+            key = f"{ref}/{g}/pos{i}/{rest.replace('.', '/')}"
             stacks.setdefault(key, {})[r] = t
         else:
             flat[name.replace(".", "/")] = _to_numpy(name, t)
@@ -97,20 +105,26 @@ def from_jax_layout(cfg: ModelConfig, flat: Mapping[str, np.ndarray]
                     ) -> Dict[str, torch.Tensor]:
     """``{reference keypath: array}`` -> ``{port parameter name: tensor}``
     (CPU tensors; stacked layers split apart)."""
-    layer_offset, unit_len, n_reps, start = {}, {}, {}, 0
-    for g, (unit, n) in enumerate(group_meta(cfg)):
-        layer_offset[g], unit_len[g], n_reps[g] = start, len(unit), n
-        start += n * len(unit)
+    groups = {}    # (reference prefix, group) -> (port prefix, first layer, unit length, n)
+    for ref, port, meta in _stacks(cfg):
+        start = 0
+        for g, (unit, n) in enumerate(meta):
+            groups[(ref, str(g))] = (port, start, len(unit), n)
+            start += n * len(unit)
     out: Dict[str, torch.Tensor] = {}
     for key, arr in flat.items():
         t = _to_tensor(arr)
-        if key.startswith("groups/"):
-            g = int(key.split("/")[1])
-            if t.shape[0] != n_reps[g]:
+        parts = key.split("/", 3)
+        group = groups.get(tuple(parts[:2])) if len(parts) == 4 else None
+        if group is not None:
+            port, first, unit_len, n = group
+            pos, path = parts[2:]
+            if t.shape[0] != n:
                 raise ValueError(f"{key}: leading axis {t.shape[0]} != "
-                                 f"{n_reps[g]} stacked layers")
-            for r in range(n_reps[g]):
-                out[_port_name(key, layer_offset, unit_len, r)] = t[r]
+                                 f"{n} stacked layers")
+            for r in range(n):
+                layer = first + r * unit_len + int(pos[3:])
+                out[f"{port}.{layer}.{path.replace('/', '.')}"] = t[r]
         else:
             out[key.replace("/", ".")] = t
     return out

@@ -10,14 +10,21 @@ and the scan is a loop over the same groups (``group_meta``).  Attention
 blocks take the MoE FFN (``models.moe``) in place of the MLP for the
 ``moe_*`` kinds, attend within ``cfg.window`` for the ``*local`` kinds, and
 add gemma2's sandwich norms (``post1`` after attention, ``post2`` after
-the MLP or MoE) when ``cfg.post_norm`` is set.
+the MLP or MoE) when ``cfg.post_norm`` is set.  For an encoder-decoder
+(``cfg.is_encdec``: whisper) the decoder's blocks also hold the
+cross-attention ``cross`` and its norm ``ln_cross``, run after ``post1``
+against the encoder's output; the encoder's blocks are plain
+``"global"`` blocks run without a causal mask.
 
 Every kernel of a serving block comes from a :class:`Kernels` bundle:
 ``KERNELS`` (``kernels.ops``: the Hopper kernels on the card, their plain
 versions on the CPU) on the serving path, ``PLAIN`` (the models' own plain
-forms) for comparisons on any device.  Training takes no bundle: it runs
-the plain forms the reference trains with (``mha``, ``wkv6_chunked``, the
-associative ``rglru_scan``), since the kernels have no backward.
+forms) for comparisons on any device.  The serving path's prefill and its
+encoder take the bundle's attention for every attention (self, cross and
+the encoder's); decode attends with the plain ``mha_decode``.  Training
+takes no bundle: it runs the plain forms the reference trains with
+(``mha``, ``wkv6_chunked``, the associative ``rglru_scan``), since the
+kernels have no backward.
 """
 from __future__ import annotations
 
@@ -32,8 +39,8 @@ from ..device import resolve_device
 from ..kernels import ops
 from .config import ModelConfig
 from .layers import (MLP, Attention, Norm, apply_linear, apply_mlp,
-                     apply_norm, attention_block, attention_decode, mha, rope,
-                     torch_dtype)
+                     apply_norm, attention_block, attention_decode,
+                     cross_attention_decode, mha, rope, torch_dtype)
 from .moe import MoE, apply_moe
 from .rglru import (RGLRU, apply_rglru, init_rglru_state, rglru_decode,
                     rglru_scan)
@@ -68,11 +75,14 @@ def _window(cfg: ModelConfig, kind: str) -> int:
     return cfg.window if kind.endswith("local") else 0
 
 
-def group_meta(cfg: ModelConfig) -> Tuple[Tuple[Tuple[str, ...], int], ...]:
-    """((unit kinds, n_repeats), ...) covering cfg.n_layers in order — the
-    reference's stacking, used to map its keypaths onto layers."""
+def group_meta(cfg: ModelConfig, n_layers: Optional[int] = None
+               ) -> Tuple[Tuple[Tuple[str, ...], int], ...]:
+    """((unit kinds, n_repeats), ...) covering ``n_layers`` (default
+    cfg.n_layers) in order — the reference's stacking, used to map its
+    keypaths onto layers."""
     unit = cfg.block_pattern
-    n_full, leftover = divmod(cfg.n_layers, len(unit))
+    n_full, leftover = divmod(cfg.n_layers if n_layers is None else n_layers,
+                              len(unit))
     groups: List[Tuple[Tuple[str, ...], int]] = []
     if n_full:
         groups.append((unit, n_full))
@@ -86,11 +96,16 @@ class Block(nn.Module):
     attention + MoE (``"moe_global"``, ``"moe_local"``), RG-LRU + MLP
     (``"rec"``), or RWKV6 time-mix + channel-mix (``"rwkv"``).  With
     ``cfg.post_norm`` every block holds ``post1`` and ``post2``, as the
-    reference's ``block_spec`` does; the attention blocks apply them."""
+    reference's ``block_spec`` does; the attention blocks apply them.  With
+    ``cross`` an attention block also holds the cross-attention ``cross``
+    and ``ln_cross`` (an encoder-decoder's decoder blocks).  On the card
+    unless ``device`` is ``"cpu"``."""
 
-    def __init__(self, cfg: ModelConfig, kind: str, device="cpu"):
+    def __init__(self, cfg: ModelConfig, kind: str,
+                 device: Union[str, torch.device] = "cuda", cross: bool = False):
         super().__init__()
         check_kind(kind)
+        device = resolve_device(device)
         dtype = torch_dtype(cfg.param_dtype)
         self.kind = kind
         self.ln1 = Norm(cfg.d_model, cfg.norm, dtype, device)
@@ -105,6 +120,9 @@ class Block(nn.Module):
             self.rec = RGLRU(cfg, dtype, device)
         else:
             self.attn = Attention(cfg, dtype, device)
+            if cross:
+                self.cross = Attention(cfg, dtype, device)
+                self.ln_cross = Norm(cfg.d_model, cfg.norm, dtype, device)
         if kind.startswith("moe"):
             self.moe = MoE(cfg, dtype, device)
         else:
@@ -116,16 +134,27 @@ class Block(nn.Module):
 # ---------------------------------------------------------------------------
 
 def block_forward(kind: str, p: Block, x: torch.Tensor, cfg: ModelConfig,
-                  positions: torch.Tensor, collect_cache: Optional[int] = None,
-                  kernels: Kernels = KERNELS
+                  positions: torch.Tensor,
+                  encoder_out: Optional[torch.Tensor] = None,
+                  causal: bool = True, collect_cache: Optional[int] = None,
+                  kernels: Optional[Kernels] = None
                   ) -> Tuple[torch.Tensor, Optional[Dict[str, torch.Tensor]]]:
-    """One block; returns (x, its decode cache or None).  ``collect_cache``:
-    the prefill's KV buffer length (attention caches hold that many
-    positions, or a ring of ``cfg.window``), through ``kernels``; None
-    during training, which runs the plain forms under autograd."""
+    """One block; returns (x, its decode cache or None).  ``encoder_out``:
+    the encoder's output, which a block holding ``cross`` attends to;
+    ``causal``: False for the encoder's blocks.  ``collect_cache``: the
+    prefill's KV buffer length (attention caches hold that many positions,
+    or a ring of ``cfg.window``; a cross-attention block also keeps its
+    encoder K/V), through ``kernels``.  Without ``collect_cache`` the
+    block runs without a cache: through ``kernels``' attention if a bundle
+    is given (the encoder on the serving path), else the plain forms under
+    autograd (training)."""
     check_kind(kind)
     if collect_cache is None:
-        return _train_block(kind, p, x, cfg, positions), None
+        attention = mha if kernels is None else kernels.attention
+        return _forward_block(kind, p, x, cfg, positions, encoder_out, causal,
+                              attention), None
+    if kernels is None:
+        raise ValueError("a prefill (collect_cache) runs through a Kernels bundle")
     h_in = apply_norm(p.ln1, x, cfg.norm)
     if kind == "rwkv":
         h, st = apply_time_mix(p.tm, h_in, cfg, return_state=True,
@@ -142,7 +171,14 @@ def block_forward(kind: str, p: Block, x: torch.Tensor, cfg: ModelConfig,
     h, cache = _attention_with_cache(p.attn, h_in, cfg, positions,
                                      _window(cfg, kind), collect_cache,
                                      kernels.attention)
-    return _attention_residuals(kind, p, x, h, cfg), cache
+
+    def cross(hc: torch.Tensor) -> torch.Tensor:
+        y, cache["cross_k"], cache["cross_v"] = attention_block(
+            p.cross, hc, cfg, positions=positions, encoder_out=encoder_out,
+            attention=kernels.attention, return_kv=True)
+        return y
+
+    return _attention_residuals(kind, p, x, h, cfg, cross), cache
 
 
 def _mlp_residual(p: Block, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -154,11 +190,15 @@ def _maybe_post(p: Block, h: torch.Tensor, cfg: ModelConfig, name: str) -> torch
 
 
 def _attention_residuals(kind: str, p: Block, x: torch.Tensor, h: torch.Tensor,
-                         cfg: ModelConfig) -> torch.Tensor:
+                         cfg: ModelConfig,
+                         cross: Callable[[torch.Tensor], torch.Tensor]) -> torch.Tensor:
     """An attention block from its attention output ``h`` on: the residual
-    add (through ``post1``), then the MLP or MoE on ``ln2`` (through
+    add (through ``post1``), the cross-attention ``cross`` on ``ln_cross``
+    where the block holds one, then the MLP or MoE on ``ln2`` (through
     ``post2``)."""
     x = x + _maybe_post(p, h, cfg, "post1")
+    if hasattr(p, "cross"):
+        x = x + cross(apply_norm(p.ln_cross, x, cfg.norm))
     h2_in = apply_norm(p.ln2, x, cfg.norm)
     if kind.startswith("moe"):
         h2 = apply_moe(p.moe, h2_in, cfg)
@@ -167,11 +207,13 @@ def _attention_residuals(kind: str, p: Block, x: torch.Tensor, h: torch.Tensor,
     return x + _maybe_post(p, h2, cfg, "post2")
 
 
-def _train_block(kind: str, p: Block, x: torch.Tensor, cfg: ModelConfig,
-                 positions: torch.Tensor) -> torch.Tensor:
-    """The reference's ``collect_cache=None`` branch, with its plain forms:
-    jnp-style ``mha``, chunked WKV6 for S > 1 (sequential for one token),
-    the associative RG-LRU scan."""
+def _forward_block(kind: str, p: Block, x: torch.Tensor, cfg: ModelConfig,
+                   positions: torch.Tensor, encoder_out: Optional[torch.Tensor],
+                   causal: bool, attention: AttentionFn) -> torch.Tensor:
+    """The reference's ``collect_cache=None`` branch, with its plain forms
+    (chunked WKV6 for S > 1, sequential for one token; the associative
+    RG-LRU scan) and ``attention`` for every attention: jnp-style ``mha``
+    in training, a kernel for the encoder on the serving path."""
     h_in = apply_norm(p.ln1, x, cfg.norm)
     if kind == "rwkv":
         wkv = wkv6_chunked if x.shape[1] > 1 else wkv6_sequential
@@ -180,8 +222,14 @@ def _train_block(kind: str, p: Block, x: torch.Tensor, cfg: ModelConfig,
     if kind == "rec":
         return _mlp_residual(p, x + apply_rglru(p.rec, h_in, cfg, scan=rglru_scan), cfg)
     h = attention_block(p.attn, h_in, cfg, positions=positions,
-                        window=_window(cfg, kind))
-    return _attention_residuals(kind, p, x, h, cfg)
+                        window=_window(cfg, kind), causal=causal,
+                        attention=attention)
+
+    def cross(hc: torch.Tensor) -> torch.Tensor:
+        return attention_block(p.cross, hc, cfg, positions=positions,
+                               encoder_out=encoder_out, attention=attention)
+
+    return _attention_residuals(kind, p, x, h, cfg, cross)
 
 
 def _attention_with_cache(p: Attention, x: torch.Tensor, cfg: ModelConfig,
@@ -225,7 +273,7 @@ def block_decode(kind: str, p: Block, x: torch.Tensor,
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One token through one block; the layer's cache dict is updated in
     place (attention K/V written into their buffers, recurrent states
-    replaced)."""
+    replaced; a cross-attention block reads its encoder K/V)."""
     check_kind(kind)
     h_in = apply_norm(p.ln1, x, cfg.norm)
     if kind == "rwkv":
@@ -245,16 +293,23 @@ def block_decode(kind: str, p: Block, x: torch.Tensor,
         return _mlp_residual(p, x + h, cfg), cache
     h, cache = attention_decode(p.attn, h_in, cache, cfg, pos=pos,
                                 window=_window(cfg, kind))
-    return _attention_residuals(kind, p, x, h, cfg), cache
+
+    def cross(hc: torch.Tensor) -> torch.Tensor:
+        return cross_attention_decode(p.cross, hc, cache, cfg)
+
+    return _attention_residuals(kind, p, x, h, cfg, cross), cache
 
 
 # ---------------------------------------------------------------------------
 # Cache construction
 # ---------------------------------------------------------------------------
 
-def layer_cache_shape(cfg: ModelConfig, kind: str, batch: int,
-                      s_buf: int) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
-    """(shape, dtype) of each tensor of one layer's decode cache."""
+def layer_cache_shape(cfg: ModelConfig, kind: str, batch: int, s_buf: int,
+                      cross: bool = False
+                      ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """(shape, dtype) of each tensor of one layer's decode cache; with
+    ``cross`` an attention layer also keeps its cross-attention's encoder
+    K/V, ``(batch, cfg.encoder_seq, K, dh)`` each."""
     check_kind(kind)
     f32 = torch.float32
     if kind == "rwkv":
@@ -265,8 +320,13 @@ def layer_cache_shape(cfg: ModelConfig, kind: str, batch: int,
                 for name, t in init_rglru_state(cfg, batch, "meta").items()}
     window = _window(cfg, kind)
     n = min(window, s_buf) if window else s_buf
-    spec = ((batch, n, cfg.n_kv_heads, cfg.d_head), torch_dtype(cfg.compute_dtype))
-    return {"k": spec, "v": spec}
+    cdt = torch_dtype(cfg.compute_dtype)
+    spec = ((batch, n, cfg.n_kv_heads, cfg.d_head), cdt)
+    out = {"k": spec, "v": spec}
+    if cross:
+        enc = ((batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.d_head), cdt)
+        out.update(cross_k=enc, cross_v=enc)
+    return out
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_buf: int,
@@ -277,7 +337,7 @@ def init_cache(cfg: ModelConfig, batch: int, s_buf: int,
     device = resolve_device(device)
     return [{name: torch.zeros(shape, dtype=dt, device=device)
              for name, (shape, dt) in
-             layer_cache_shape(cfg, kind, batch, s_buf).items()}
+             layer_cache_shape(cfg, kind, batch, s_buf, cfg.is_encdec).items()}
             for kind in cfg.layer_kinds]
 
 
@@ -297,18 +357,24 @@ def _split_factor(n: int) -> int:
 
 
 def _groups(layers: Sequence[Block], cfg: ModelConfig):
-    """Per group of ``group_meta``: its repetitions, each the list of the
-    unit's layers."""
+    """Per group of ``group_meta`` over ``layers`` (the decoder's, or the
+    encoder's, which the reference stacks the same way): its repetitions,
+    each the list of the unit's layers."""
     start = 0
-    for unit, n in group_meta(cfg):
+    for unit, n in group_meta(cfg, len(layers)):
         u = len(unit)
         yield [list(layers[start + r * u:start + (r + 1) * u]) for r in range(n)]
         start += n * u
 
 
 def run_stack(layers: Sequence[Block], x: torch.Tensor, cfg: ModelConfig,
-              positions: torch.Tensor, remat: bool = True) -> torch.Tensor:
-    """Training forward through all groups, under autograd.
+              positions: torch.Tensor, encoder_out: Optional[torch.Tensor] = None,
+              causal: bool = True, remat: bool = True,
+              kernels: Optional[Kernels] = None) -> torch.Tensor:
+    """Forward through all groups without a cache: training, under
+    autograd, or, given ``kernels``, the encoder of the serving path (no
+    remat: it runs under ``no_grad``).  ``causal`` is False for the
+    encoder; ``encoder_out`` feeds the decoder's cross-attention.
 
     With ``remat`` each repetition of a group's unit is checkpointed (the
     reference's ``nothing_saveable`` scan body: only its input is kept, the
@@ -318,7 +384,8 @@ def run_stack(layers: Sequence[Block], x: torch.Tensor, cfg: ModelConfig,
     n / n_inner + n_inner residual-stream carries instead of n."""
     def body(h: torch.Tensor, rep: List[Block]) -> torch.Tensor:
         for layer in rep:
-            h, _ = block_forward(layer.kind, layer, h, cfg, positions)
+            h, _ = block_forward(layer.kind, layer, h, cfg, positions,
+                                 encoder_out, causal, kernels=kernels)
         return h
 
     def remat_body(h: torch.Tensor, rep: List[Block]) -> torch.Tensor:
@@ -329,6 +396,8 @@ def run_stack(layers: Sequence[Block], x: torch.Tensor, cfg: ModelConfig,
             h = remat_body(h, rep)
         return h
 
+    if kernels is not None:
+        return body(x, list(layers))
     for reps in _groups(layers, cfg):
         n = len(reps)
         if not remat:
@@ -350,12 +419,15 @@ def run_stack(layers: Sequence[Block], x: torch.Tensor, cfg: ModelConfig,
 
 def run_stack_prefill(layers: Sequence[Block], x: torch.Tensor,
                       cfg: ModelConfig, positions: torch.Tensor, s_buf: int,
-                      kernels: Kernels = KERNELS) -> Tuple[torch.Tensor, Cache]:
+                      kernels: Kernels = KERNELS,
+                      encoder_out: Optional[torch.Tensor] = None
+                      ) -> Tuple[torch.Tensor, Cache]:
     """Prefill forward that also returns the decode cache (one dict per
-    layer)."""
+    layer); ``encoder_out`` feeds the decoder's cross-attention."""
     cache: Cache = []
     for layer in layers:
-        x, c = block_forward(layer.kind, layer, x, cfg, positions, s_buf, kernels)
+        x, c = block_forward(layer.kind, layer, x, cfg, positions, encoder_out,
+                             collect_cache=s_buf, kernels=kernels)
         cache.append(c)
     return x, cache
 

@@ -73,12 +73,14 @@ def test_flash_attention_dh256_gqa16_matches_plain(card, kw, dtype):
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
-def _check_wgmma(card, B, Sq, H, K, dh, seed, **kw):
-    """One bf16 call of K1 on the wgmma kernel against the plain version."""
+def _check_wgmma(card, B, Sq, H, K, dh, seed, Sk=None, **kw):
+    """One bf16 call of K1 on the wgmma kernel against the plain version;
+    ``Sk`` keys (default ``Sq``)."""
     assert fa.variant(torch.bfloat16, dh) == "wgmma"
     g = torch.Generator(device=card).manual_seed(seed)
     q = torch.randn((B, Sq, H, dh), generator=g, device=card).bfloat16()
-    k, v = (torch.randn((B, Sq, K, dh), generator=g, device=card).bfloat16() for _ in range(2))
+    k, v = (torch.randn((B, Sk or Sq, K, dh), generator=g, device=card).bfloat16()
+            for _ in range(2))
     before = dict(fa.flash_attention.launches_by_variant)
     got = ops.attention(q, k, v, **kw)
     torch.cuda.synchronize()
@@ -94,33 +96,33 @@ WGMMA_IDS = ["causal", "full", "window", "softcap"]
 
 @pytest.mark.parametrize("S", [37, 150, 1000])   # ragged, none a multiple of the 128-row q tile
 @pytest.mark.parametrize("kw", WGMMA_SETTINGS, ids=WGMMA_IDS)
-@pytest.mark.parametrize("dh", [128, 256])
+@pytest.mark.parametrize("dh", [64, 128, 256])
 def test_wgmma_flash_attention_matches_plain(card, dh, kw, S):
     _check_wgmma(card, 2, S, 6, 2, dh, seed=S + dh, **kw)
 
 
 @pytest.mark.parametrize("G", [1, 7, 16])
-@pytest.mark.parametrize("dh", [128, 256])
+@pytest.mark.parametrize("dh", [64, 128, 256])
 def test_wgmma_flash_attention_gqa_matches_plain(card, dh, G):
     _check_wgmma(card, 2, 300, 2 * G, 2, dh, seed=G, causal=True)
 
 
-@pytest.mark.parametrize("dh", [128, 256])
+@pytest.mark.parametrize("dh", [64, 128, 256])
 def test_wgmma_flash_attention_many_waves(card, dh):
     """B*H*q tiles = 4*56*4 = 896 CTAs of one SM each: several waves."""
     _check_wgmma(card, 4, 500, 56, 8, dh, seed=5, causal=True)
 
 
-@pytest.mark.parametrize("dh", [128, 256])
+@pytest.mark.parametrize("dh", [64, 128, 256])
 def test_wgmma_single_kv_tile_no_mask(card, dh):
     """64 keys, no mask: one K/V tile at either head size and no masked
     element, so only the swizzle and the wgmma descriptors are tested."""
     _check_wgmma(card, 1, 64, 2, 1, dh, seed=11, causal=False)
 
 
-@pytest.mark.parametrize("dh,S", [(128, 128), (256, 64)])
+@pytest.mark.parametrize("dh,S", [(64, 128), (128, 128), (256, 64)])
 def test_wgmma_causal_one_q_tile(card, dh, S):
-    """S = one q tile (two warpgroups of 64 rows at dh 128, one at dh 256):
+    """S = one q tile (two warpgroups of 64 rows at dh 64 and 128, one at dh 256):
     the causal mask alone tests which row and column each accumulator
     fragment holds."""
     _check_wgmma(card, 1, S, 2, 1, dh, seed=12, causal=True)
@@ -136,9 +138,41 @@ def test_wgmma_gemma2_heads_match_plain(card, kw):
     _check_wgmma(card, 2, 700, 32, 16, 128, seed=27, **kw)
 
 
+@pytest.mark.parametrize("Sq,Sk", [(224, 1500), (37, 300), (300, 37), (1500, 1500)])
+@pytest.mark.parametrize("dh", [64, 128, 256])
+def test_wgmma_non_causal_sq_ne_sk_matches_plain(card, dh, Sq, Sk):
+    """Cross-attention's shapes: Sq query rows against Sk keys, no mask
+    but the ragged tails (whisper's 224 against 1500 frames, whose last
+    key tile holds 92 keys, and its encoder's 1500 against 1500)."""
+    _check_wgmma(card, 2, Sq, 20 if dh == 64 else 4, 20 if dh == 64 else 2, dh,
+                 seed=Sq + Sk + dh, Sk=Sk, causal=False)
+
+
 def test_wgmma_mixtral_heads_match_plain(card):
     """mixtral-8x7b's attention: 32 query heads on 8 KV heads, a window."""
     _check_wgmma(card, 2, 700, 32, 8, 128, seed=87, causal=True, window=256)
+
+
+def test_whisper_prefill_on_card_matches_plain(card):
+    """The reduced whisper at d_head 64 on the card: the prefill with frames
+    through the kernels (K1 on wgmma once per encoder layer and twice per
+    decoder layer: self- and cross-attention) against the plain forms."""
+    import numpy as np
+    from repro_torch.configs import reduced_config
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import PLAIN
+
+    cfg = reduced_config("whisper-large-v3", param_dtype="bfloat16", d_head=64)
+    model = init_params(cfg, 0)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 40))).to(card)
+    frames = torch.randn((2, cfg.encoder_seq, cfg.d_model), device=card).bfloat16()
+    before = dict(fa.flash_attention.launches_by_variant)
+    got, _ = model.prefill(tokens, 48, frames=frames)
+    assert fa.flash_attention.launches_by_variant == dict(
+        before, wgmma=before["wgmma"] + cfg.encoder_layers + 2 * cfg.n_layers)
+    want, _ = model.prefill(tokens, 48, kernels=PLAIN, frames=frames)
+    torch.testing.assert_close(got, want, rtol=5e-2, atol=1e-1)
 
 
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "gemma2-27b", "pixtral-12b"])

@@ -2,7 +2,7 @@
 host.
 
 ``flash_attention.variant`` picks the tensor-core kernel (``"wgmma"``,
-``csrc/flash_attention_sm90.cu``) for bf16 at d_head 128 and 256 and the
+``csrc/flash_attention_sm90.cu``) for bf16 at d_head 64, 128 and 256 and the
 SIMT kernel (``csrc/flash_attention.cu``) otherwise, by dtype and head size
 alone.  Every ``extern "C"`` entry point of ``csrc/*.cu`` is called through
 ctypes with the ``argtypes`` its wrapper sets; a parameter whose kind
@@ -53,14 +53,14 @@ C_ENTRIES = _c_entries()
 
 @pytest.mark.parametrize("dtype,dh,expected", [
     (torch.bfloat16, 128, "wgmma"), (torch.bfloat16, 256, "wgmma"),
-    (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"), (torch.bfloat16, 64, "simt"),
+    (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"), (torch.bfloat16, 64, "wgmma"),
     (torch.float32, 64, "simt"), (torch.float32, 128, "simt"), (torch.float32, 256, "simt"),
 ])
 def test_variant_is_chosen_by_dtype_and_head_size(dtype, dh, expected):
     assert k1.variant(dtype, dh) == expected
 
 
-@pytest.mark.parametrize("arch", ["yi-34b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["yi-34b", "recurrentgemma-9b", "whisper-large-v3"])
 def test_serving_prefill_attention_takes_the_wgmma_kernel(arch):
     """The models that attend on the serving path, in bf16 at their published
     head size, go through the tensor-core kernel (``chip_smoke.py`` checks

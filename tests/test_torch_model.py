@@ -24,8 +24,8 @@ from repro.models.model import decode_step as jdecode_step  # noqa: E402
 from repro.models.model import prefill as jprefill  # noqa: E402
 from repro_torch.configs import get_config, list_archs, reduced_config  # noqa: E402
 from repro_torch.launch import steps  # noqa: E402
-from repro_torch.models import from_jax_params, init_params  # noqa: E402
-from repro_torch.models.transformer import init_cache  # noqa: E402
+from repro_torch.models import Model, from_jax_params, init_params  # noqa: E402
+from repro_torch.models.transformer import Block, init_cache  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
 from _torch_threads import one_torch_thread  # noqa: E402,F401  (autouse)
 
@@ -57,9 +57,9 @@ def _np(x):
 
 
 def test_configs_mirror_reference():
-    """All nine published configs, and their reduced configs, equal the
+    """All ten published configs, and their reduced configs, equal the
     reference's field by field."""
-    assert len(list_archs()) == 9
+    assert len(list_archs()) == 10
     for name in list_archs():
         assert dataclasses.asdict(get_config(name)) == \
             dataclasses.asdict(jget_config(name))
@@ -71,9 +71,13 @@ def test_configs_mirror_reference():
 
 
 def test_unported_arch_raises():
-    assert "whisper-large-v3" not in list_archs()
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("whisper-large-v3")
+    """Every architecture of the reference is registered, whisper-large-v3
+    the last; a name the registry does not hold raises."""
+    from repro.configs import ARCH_MODULES as JARCH_MODULES
+    assert list_archs() == tuple(JARCH_MODULES)
+    assert list_archs()[-1] == "whisper-large-v3"
+    with pytest.raises(KeyError, match="unknown architecture 'llama-99b'"):
+        get_config("llama-99b")
 
 
 def test_params_carry_across_exactly():
@@ -170,19 +174,52 @@ def test_init_cache_shapes():
     assert cache[0]["v"].dtype == torch.bfloat16
 
 
-def test_unported_block_kind_raises():
-    """The encoder-decoder's blocks (whisper: cross-attention, the encoder
-    stack, the audio stub) are refused, not silently run as a decoder."""
-    cfg = dataclasses.replace(reduced_config("yi-34b"), encoder_layers=2, encoder_seq=24)
-    with pytest.raises(NotImplementedError, match="encoder-decoder not ported"):
-        init_params(cfg, 0, "cpu")
-    cfg = dataclasses.replace(reduced_config("yi-34b"), frontend="audio_stub")
-    with pytest.raises(NotImplementedError, match="audio frontend not ported"):
-        init_params(cfg, 0, "cpu")
+def _reference_shapes(jcfg):
+    """{reference keypath: shape} of ``jcfg``'s parameters, unallocated."""
+    tree = jax.eval_shape(lambda: jinit_params(jcfg, 0))
+    return {"/".join(str(p.key) if hasattr(p, "key") else str(p.idx) for p in path):
+            tuple(leaf.shape)
+            for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _as_port_names(ref_shapes):
+    """The reference's stacked keypaths as the port's per-layer names."""
+    out = {}
+    for key, shape in ref_shapes.items():
+        head, rest = key.split("/", 1)
+        if head in ("groups", "enc_groups"):
+            g, pos, path = rest.split("/", 2)
+            assert (g, pos) == ("0", "pos0"), key    # one ("global",) group each
+            stack = "layers" if head == "groups" else "enc_layers"
+            out.update((f"{stack}.{i}.{path.replace('/', '.')}", shape[1:])
+                       for i in range(shape[0]))
+        else:
+            out[key.replace("/", ".")] = shape
+    return out
+
+
+@pytest.mark.parametrize("width", ["full", "reduced"])
+def test_unported_block_kind_raises(width):
+    """whisper-large-v3's blocks build, the encoder stack, the decoders'
+    cross-attention and the audio stub's frame_proj included, with every
+    parameter of the reference at its shape (the published widths built
+    on the meta device, as shapes only); a block kind no config holds is
+    still refused."""
+    cfg, jcfg = ((get_config, jget_config) if width == "full" else
+                 (reduced_config, jreduced_config))
+    cfg, jcfg = cfg("whisper-large-v3"), jcfg("whisper-large-v3")
+    model = init_params(cfg, 0, "cpu") if width == "reduced" else \
+        Model(cfg, device="meta")
+    got = {n: tuple(t.shape) for n, t in model.state_dict().items()}
+    assert got == _as_port_names(_reference_shapes(jcfg))
+    assert len(model.enc_layers) == cfg.encoder_layers == (32 if width == "full" else 2)
+    assert got["layers.0.cross.wk.w"] == (cfg.d_model, cfg.n_kv_heads * cfg.d_head)
+    with pytest.raises(NotImplementedError, match="block kind 'bogus'"):
+        Block(cfg, "bogus", "cpu")
 
 
 @pytest.mark.parametrize("entry", ["init_params", "from_jax_params", "init_state",
-                                   "init_cache"])
+                                   "init_cache", "Model"])
 def test_entry_points_default_to_the_card(entry):
     """Without a ``device`` the model API's entry points run on the card
     and raise where there is none; they never fall back to the host."""
@@ -192,7 +229,8 @@ def test_entry_points_default_to_the_card(entry):
     calls = {"init_params": lambda: init_params(cfg, 0),
              "from_jax_params": lambda: from_jax_params(cfg, {}),
              "init_state": lambda: steps.init_state(cfg, adamw.AdamWConfig()),
-             "init_cache": lambda: init_cache(cfg, 2, 8)}
+             "init_cache": lambda: init_cache(cfg, 2, 8),
+             "Model": lambda: Model(cfg)}
     with pytest.raises(RuntimeError, match="is_available"):
         calls[entry]()
 

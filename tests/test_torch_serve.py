@@ -1,10 +1,11 @@
 """The port's serving entry point on the CPU: ``python -m
 repro_torch.launch.serve --device cpu`` runs the reduced mixtral-8x7b (the
-default), gemma2-27b, moonshot-v1-16b-a3b, rwkv6-3b and recurrentgemma-9b
-through prefill and decode rounds with one analysis window per round, and
-the default device (the card) raises where there is none instead of
-falling back to the host.  The serving path's kernel calls are rehearsed
-for all nine architectures."""
+default), gemma2-27b, moonshot-v1-16b-a3b, rwkv6-3b, recurrentgemma-9b and
+whisper-large-v3 (with frames drawn from the run's seed) through prefill
+and decode rounds with one analysis window per round, and the default
+device (the card) raises where there is none instead of falling back to
+the host.  The serving path's kernel calls are rehearsed for all ten
+architectures, whisper's cross-attention (Sq != Sk) included."""
 import os
 import subprocess
 import sys
@@ -48,7 +49,7 @@ def test_cli_cpu_prints_three_window_timeline():
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b", "gemma2-27b",
-                                  "moonshot-v1-16b-a3b"])
+                                  "moonshot-v1-16b-a3b", "whisper-large-v3"])
 def test_cli_cpu_recurrent_archs(arch):
     """The two recurrent families at reduced size on the host: one analysis
     window per round."""
@@ -59,7 +60,7 @@ def test_cli_cpu_recurrent_archs(arch):
     assert f"[serve] {arch} (d_model=64" in out.stdout
 
 
-@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b", "whisper-large-v3"])
 def test_cli_recurrent_archs_without_card_raise(arch):
     out = _run("--arch", arch, "--tokens", "1", "--rounds", "1",
                env_extra={"CUDA_VISIBLE_DEVICES": ""})
@@ -104,8 +105,27 @@ def test_build_config_widths():
                          ("gemma2-27b", (4608, 32, 16, 46))):
         full = build_config(arch, True, 16 if arch == "mixtral-8x7b" else None)
         assert (full.d_model, full.n_heads, full.n_kv_heads, full.n_layers) == widths
-    with pytest.raises(KeyError, match="not ported"):
-        build_config("whisper-large-v3", False, None)
+    assert build_config("whisper-large-v3", False, None) == reduced_config("whisper-large-v3")
+    full = build_config("whisper-large-v3", True, None)
+    assert (full.d_model, full.n_heads, full.n_kv_heads, full.d_head, full.n_layers,
+            full.encoder_layers, full.encoder_seq) == (1280, 20, 20, 64, 32, 32, 1500)
+    with pytest.raises(KeyError, match="unknown architecture"):
+        build_config("llama-99b", False, None)
+
+
+def test_whisper_serve_draws_frames_from_the_seed():
+    """An encoder-decoder's frames come from the prompts' generator: the
+    same run twice gives the same frames and tokens; the frames are in the
+    compute dtype at the encoder's length."""
+    cfg = reduced_config("whisper-large-v3")
+    runs = [serve(cfg, batch=2, prompt_len=8, tokens=2, rounds=1, sync_analysis=True,
+                  device="cpu") for _ in range(2)]
+    assert runs[0].frames.shape == (2, cfg.encoder_seq, cfg.d_model)
+    assert runs[0].frames.dtype == torch.bfloat16
+    assert torch.equal(runs[0].frames, runs[1].frames)
+    np.testing.assert_array_equal(runs[0].tokens, runs[1].tokens)
+    assert serve(reduced_config("yi-34b"), batch=2, prompt_len=8, tokens=1, rounds=1,
+                 sync_analysis=True, device="cpu").frames is None
 
 
 @pytest.mark.parametrize("arch", list_archs())
@@ -114,12 +134,17 @@ def test_serving_path_feeds_kernels_what_they_take(arch):
     call's arguments (as ``kernels.ops`` hands them to the kernel) pass the
     kernel wrapper's own checks of dtype, shape and contiguity, and each
     kernel is called once per layer of its kind per prefill and per decode
-    step, as ``chip_smoke.py`` counts launches on the card."""
+    step, as ``chip_smoke.py`` counts launches on the card.  An
+    encoder-decoder's prefill also calls K1 once per encoder layer (Sq = Sk
+    = encoder_seq, non-causal) and once per decoder layer's
+    cross-attention (Sq = the prompt's 20 against Sk = encoder_seq)."""
     calls = {"attention": 0, "wkv6": 0, "rglru_scan": 0}
+    shapes = []
 
     def attention(q, k, v, **kw):
         k1.check_inputs(q, k, v)
         calls["attention"] += 1
+        shapes.append((q.shape[1], k.shape[1], kw["causal"]))
         return ops.attention(q, k, v, **kw)
 
     def wkv6(*args):
@@ -135,15 +160,25 @@ def test_serving_path_feeds_kernels_what_they_take(arch):
     kernels = Kernels(attention, wkv6, rglru_scan)
     cfg = reduced_config(arch, param_dtype="bfloat16")
     model = init_params(cfg, 0, "cpu")
-    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 20)))
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 20)))
+    frames = None
+    if cfg.is_encdec:
+        frames = torch.from_numpy(rng.standard_normal(
+            (2, cfg.encoder_seq, cfg.d_model)).astype(np.float32)).bfloat16()
     steps = 2
-    logits, cache = model.prefill(tokens, 20 + steps, kernels=kernels)
+    logits, cache = model.prefill(tokens, 20 + steps, kernels=kernels, frames=frames)
     for step in range(steps):
         logits, cache = model.decode_step(logits[:, -1:].argmax(-1), 20 + step, cache,
                                           kernels=kernels)
     assert torch.isfinite(logits).all()
     kinds = cfg.layer_kinds
     n_attn = sum(k not in ("rec", "rwkv") for k in kinds)
-    assert calls == {"attention": n_attn,   # decode attention is plain
+    enc, cross = cfg.encoder_layers, n_attn if cfg.is_encdec else 0
+    assert calls == {"attention": n_attn + enc + cross,   # decode attention is plain
                      "wkv6": kinds.count("rwkv") * (1 + steps),
                      "rglru_scan": kinds.count("rec") * (1 + steps)}
+    Se = cfg.encoder_seq
+    assert shapes == ([(Se, Se, False)] * enc
+                      + [(20, 20, True), (20, Se, False)] * cross
+                      + ([] if cross else [(20, 20, True)] * n_attn))

@@ -36,7 +36,7 @@ parameter the forward does not reach otherwise makes the gradient raise.
 Also here: gradients with remat on and off are equal bit for bit (one
 group per layer, and nine layers, the reference's two-level sqrt split);
 the chunked loss over several chunks; ``mha``'s per-chunk checkpoint;
-``to_jax_params`` inverts ``from_jax_params`` for all nine architectures;
+``to_jax_params`` inverts ``from_jax_params`` for all ten architectures;
 ten ``make_train_step``
 steps (microbatches 1 and 2) track the reference's losses to 1e-4.
 """
@@ -252,7 +252,7 @@ def test_to_jax_params_inverts_from_jax_params(arch):
 def test_bf16_parameters_refuse_numpy():
     cfg = reduced_config("yi-34b", param_dtype="bfloat16")
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        to_jax_params(tmodel.Model(cfg))
+        to_jax_params(tmodel.Model(cfg, device="cpu"))
 
 
 @pytest.mark.parametrize("microbatches", [1, 2])
