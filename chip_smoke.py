@@ -111,7 +111,31 @@ script.  Phases, each raising on failure (nothing is caught):
          K1 96 times per prefill (each encoder layer, each decoder layer's
          self- and cross-attention), every launch on "wgmma", K2 and K3
          never; 3 windows; kernel vs plain logits on the same frames; prints
-         cold and warm prefill, decode tok/s and peak memory.
+         cold and warm prefill, decode tok/s and peak memory;
+  G      the analysis side, which launches no kernel (every count set to 0
+         before the phase and required to be 0 after it):
+           1. the paper's case studies through the port's workloads, on the
+              host CPU: ST (original, balanced, locality + buffered I/O) and
+              NPAR1WAY (original, optimized) at scale 0.4 on the fixed taus
+              of ``tests/test_torch_workloads.py``, which must give the
+              paper's verdicts (ST: kinds {0} {1,2} {3} {4,6} {5,7}, CCCR
+              ext 11, int {8, 11}, cores {instructions} / {disk_io,
+              l2_miss_rate}; NPAR1WAY: one cluster, CCCRs {3, 12}, core
+              {instructions, network_io}); then each counterpart of
+              ``examples/*_case_study.py`` once at scale 1.0 on its own
+              calibration, printing its report and ladder;
+           2. ``train.run`` on D.2's command line (its depth) with ``--steps
+              9 --sim-ranks 8 --chaos-seed 3 --chaos-hosts 2 --diagnosis
+              learned``: 3 windows, the forced analyzer fault a supervised
+              tombstone at window 1, host 1's truncated blob quarantined
+              (its ranks gap-masked) at window 2, finite losses, every
+              window diagnosed by the learned strategy; then a reduced-width
+              run with ``--pod-gather`` that must deliver every window;
+           3. transport: two processes on the card's host in one gloo group
+              gather seeded windows with ``SnapshotCollector``, and the
+              merged bytes must equal ``merge_blobs`` of both blobs in one
+              process; one NCCL group of world size 1 on the card moves a
+              blob through ``SnapshotCollector._allgather`` on the device.
 
 The last lines are the card's name and power limit, one JSON line of kernel
 records, and the verdict ``{"ok": true, "device": {...}}``.
@@ -155,6 +179,22 @@ TRAIN_ARGV = ["--arch", "yi-34b", "--full-width", "--batch", "2", "--seq", "2048
 TRAIN_SMALL = ["--arch", "yi-34b", "--d-model", "256", "--batch", "2", "--seq", "128"]
 TRAIN_RTOL = 1e-4                # card against CPU, one fp32 step
 RESUME_RTOL = 1e-5               # resumed against uninterrupted losses
+# phase G: the case studies at tests/test_case_studies.py's scale on fixed taus
+# (seconds per unit of work), so no clock decides their verdicts; the tests of
+# tests/test_torch_workloads.py read these.  ST's (tau_con, tau_str, tau_blk)
+# and NPAR1WAY's per-call costs come from one calibration run of the
+# reference at G_SCALE on the CPU whose verdict was the paper's.  ST's
+# internal verdict turns on tau_str / tau_con (here 3.81): it holds up to
+# ~4.6 and gives CCCRs {14, 11} from ~4.75 on.
+G_SCALE = 0.4
+ST_TAUS = (2.64e-4, 1.007e-3, 5.67e-4)
+NPAR_TAUS = {"sort": 8.0e-4, "score_red": 4.9e-3, "score_hoist": 5.0e-4,
+             "score12": 2.3e-4, "pickle": 2.3e-4}
+ST_KINDS = ((0,), (1, 2), (3,), (4, 6), (5, 7))
+G_CHAOS = ["--steps", "9", "--sim-ranks", "8", "--chaos-seed", "3", "--chaos-hosts", "2",
+           "--diagnosis", "learned", "--policies", "all"]
+G_POD = TRAIN_SMALL + ["--steps", "6", "--analyze-every", "3", "--pod-gather"]
+G_GATHER_WINDOWS = 3             # windows each gloo process gathers in G.3
 TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2), "float32": dict(rtol=1e-5, atol=1e-5)}
 LOGITS_TOL = dict(rtol=5e-2, atol=1e-1)   # bf16 model, as the JAX package's
                                           # prefill/decode consistency test
@@ -783,6 +823,207 @@ def phase_d_checkpoint(torch, dev):
     return max(gaps)
 
 
+def phase_g_case_studies(card):
+    """G.1: the paper's ST and NPAR1WAY case studies through the port, first
+    on the fixed taus (the paper's verdicts required), then each counterpart
+    of ``examples/*_case_study.py`` once with its own calibration at scale
+    1.0.  numpy on the host CPU: the workloads have no device."""
+    from repro_torch.launch import npar1way_case_study, st_case_study
+    from repro_torch.perfdbg.workloads.npar1way import NPAR1WAYWorkload, run_npar1way
+    from repro_torch.perfdbg.workloads.st import STWorkload, run_st
+
+    def cost(rec):
+        return rec.measurements().wall_time.sum(axis=1).max()
+
+    st = {name: run_st(STWorkload(scale=G_SCALE, taus=ST_TAUS, **kw)) for name, kw in (
+        ("original", {}), ("balanced", dict(balance_region11=True)),
+        ("locality+buffered I/O", dict(optimize_locality=True, buffer_io=True)))}
+    rep, rep_b, rep_l = (st[k][1] for k in st)
+    verdict = (rep.external.clustering.clusters == ST_KINDS and rep.external.cccrs == (11,)
+               and set(rep.internal.cccrs) == {8, 11}
+               and rep.external_root_causes.core.cores == (("instructions",),)
+               and rep.internal_root_causes.core.cores == (("disk_io", "l2_miss_rate"),)
+               and not rep_b.external.exists and rep_b.external.severity < 0.15
+               and 8 not in rep_l.internal.cccrs and 11 in rep_l.internal.cccrs)
+    print(f"[G] ST at scale {G_SCALE}, taus {ST_TAUS}: kinds {rep.external.clustering.clusters}, "
+          f"CCCR ext {rep.external.cccrs} int {tuple(sorted(rep.internal.cccrs))}, cores "
+          f"{rep.external_root_causes.core.cores} / {rep.internal_root_causes.core.cores}; "
+          f"balanced S {rep_b.external.severity:.4f}, locality+buffered int CCCRs "
+          f"{tuple(sorted(rep_l.internal.cccrs))}")
+    for name, (rec, _, t) in st.items():
+        print(f"[G] ST {name}: program time {t * 1e3:.3f} ms (host clock, slowest rank), "
+              f"recorded cost {cost(rec):.4f} s | card: {card}")
+    if not verdict:
+        raise RuntimeError("ST on the fixed taus does not give the paper's verdicts")
+
+    npar = {name: run_npar1way(NPAR1WAYWorkload(scale=G_SCALE, taus=NPAR_TAUS, **kw))
+            for name, kw in (("original", {}), ("optimized", dict(eliminate_redundancy=True)))}
+    (rec, rep, _), (rec_o, _, _) = npar["original"], npar["optimized"]
+    print(f"[G] NPAR1WAY at scale {G_SCALE}: {rep.external.clustering.n_clusters} cluster(s), "
+          f"external {rep.external.exists}, int CCCRs {tuple(sorted(rep.internal.cccrs))}, core "
+          f"{rep.internal_root_causes.core.cores}; optimized cost {cost(rec_o):.4f} s vs "
+          f"{cost(rec):.4f} s")
+    for name, (_, _, t) in npar.items():
+        print(f"[G] NPAR1WAY {name}: program time {t * 1e3:.3f} ms (host clock, slowest rank) "
+              f"| card: {card}")
+    if not (rep.external.clustering.n_clusters == 1 and not rep.external.exists
+            and set(rep.internal.cccrs) == {3, 12}
+            and rep.internal_root_causes.core.cores == (("instructions", "network_io"),)
+            and cost(rec_o) < 0.97 * cost(rec)):
+        raise RuntimeError("NPAR1WAY on the fixed taus does not give the paper's verdicts")
+
+    out = {}
+    for name, module in (("st", st_case_study), ("npar1way", npar1way_case_study)):
+        t0 = time.perf_counter()
+        if module.main() != 0:
+            raise RuntimeError(f"{name} case study failed")
+        out[name] = time.perf_counter() - t0
+        print(f"[G] {name} case study at scale 1.0, own calibration: {out[name]:.1f} s "
+              f"(host clock, every variant) | card: {card}")
+    return out
+
+
+def phase_g_train(torch, dev, counters, card, layers):
+    """G.2: the trainer on D.2's command line with the chaos harness and the
+    learned diagnosis, then a reduced-width run with ``--pod-gather``.  The
+    launch counts, set to 0 before G.1, must still read 0 after the first
+    run (and after G.3, in ``main``)."""
+    from repro_torch.launch import train
+
+    res = train.run(TRAIN_ARGV + ["--layers", str(layers)] + G_CHAOS)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    windows = res.report.windows
+    print(f"[G] yi-34b full width x{layers} layers, {' '.join(G_CHAOS)}: kernel launches "
+          f"since G began {launches}; windows " + "; ".join(
+              f"{w.title()}: " + (f"FAILED ({w.error})" if w.failed else
+                                  f"gap ranks {list(w.gap_ranks)}, diag {w.diagnosis.kind}")
+              for w in windows))
+    print(res.health.render())
+    bad = [x for x in res.losses + res.grad_norms if not math.isfinite(x)]
+    if any(launches.values()) or bad or len(res.losses) != 9:
+        raise RuntimeError(f"launches {launches}, losses {res.losses}")
+    if len(windows) != 3 or [w.failed for w in windows] != [False, True, False]:
+        raise RuntimeError("expected 3 windows with the forced analyzer fault at window 1")
+    if "injected analyzer fault at window 1" not in windows[1].error:
+        raise RuntimeError(f"window 1 failed otherwise: {windows[1].error}")
+    if not {4, 5, 6, 7} <= set(windows[2].gap_ranks) or res.health.corrupt[1] < 1:
+        raise RuntimeError("host 1's truncated blob was not quarantined at window 2")
+    if any(w.diagnosis is None or w.diagnosis.strategy != "learned"
+           for w in windows if not w.failed):
+        raise RuntimeError("the windows were not diagnosed by the learned strategy")
+    warm = res.step_ms[1:]
+    med = statistics.median(warm)
+    print(f"[G] chaos + learned run: warm step (steps 2-9, CUDA events) median {med:.3f} ms, "
+          f"range {min(warm):.3f}-{max(warm):.3f} ms; losses "
+          f"{[round(x, 4) for x in res.losses]}; peak memory {res.peak_bytes / 1e9:.2f} GB "
+          f"| card: {card}")
+    out = dict(layers=layers, step_ms=res.step_ms, median_ms=med)
+    del res
+    free()
+
+    pod = train.run(G_POD)
+    n = len(pod.report.windows)
+    print(f"[G] reduced yi-34b with --pod-gather: {n} window(s), failed "
+          f"{sum(w.failed for w in pod.report.windows)}; {pod.health.render().splitlines()[-1].strip()}")
+    if n != 2 or any(w.failed for w in pod.report.windows) or pod.health.ok[0] != 2:
+        raise RuntimeError("--pod-gather did not deliver every window")
+    return out
+
+
+def gather_worker(rank, world, init, out):
+    """G.3, one gloo process: gather seeded windows with the port's
+    collector and write this process's shard blobs, the merged snapshots
+    and the gather times next to ``out``."""
+    sys.path.insert(0, str(SRC))
+    import numpy as np
+    import torch.distributed as dist
+    from repro_torch.core import RegionTree
+    from repro_torch.launch.collect import SnapshotCollector
+    from repro_torch.perfdbg import RegionRecorder
+
+    dist.init_process_group("gloo", init_method=f"file://{init}", rank=rank,
+                            world_size=world)
+    try:
+        tree = RegionTree("pod")
+        for name in ("load", "compute", "allreduce"):
+            tree.add(name)
+        rng = np.random.default_rng(100 + rank)
+        rec = RegionRecorder(tree, 2)
+        col = SnapshotCollector(strict=False)
+        times = []
+        for w in range(G_GATHER_WINDOWS):
+            for r in range(2):
+                for rid in tree.ids():
+                    t = float(rng.uniform(0.5, 2.0))
+                    rec.add(r, rid, cpu_time=t, wall_time=t, cycles=2e9 * t,
+                            instructions=1e9 * (1 + rank))
+                rec.add_program_wall(r, 3.0 + rank)
+            snap = rec.reset_window(f"w{w}")
+            t0 = time.perf_counter()
+            merged = col.gather(snap, total_ranks=2 * world)
+            times.append(time.perf_counter() - t0)
+            Path(f"{out}.blob{rank}.w{w}").write_bytes(
+                snap.to_bytes(rank_offset=2 * rank, checksum=True))
+            Path(f"{out}.merged{rank}.w{w}").write_bytes(merged.to_bytes())
+        Path(f"{out}.times{rank}").write_text(json.dumps(times))
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_g_transport(torch, card):
+    """G.3: two gloo processes on the card's host gather seeded windows, and
+    the merged snapshot's bytes equal ``merge_blobs`` of both blobs in one
+    process; then one NCCL group of world size 1 on the card moves a blob
+    through ``SnapshotCollector._allgather`` on the device."""
+    import socket
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+    from repro_torch.launch.collect import SnapshotCollector, merge_blobs
+
+    with tempfile.TemporaryDirectory(dir=SRC.parent) as tmp:
+        init, out = f"{tmp}/init", f"{tmp}/out"
+        t0 = time.perf_counter()
+        mp.spawn(gather_worker, args=(2, init, out), nprocs=2, join=True)
+        wall = time.perf_counter() - t0
+        blobs = []
+        for w in range(G_GATHER_WINDOWS):
+            pair = [Path(f"{out}.blob{r}.w{w}").read_bytes() for r in range(2)]
+            want = merge_blobs(pair, total_ranks=4, strict=False).to_bytes()
+            got = [Path(f"{out}.merged{r}.w{w}").read_bytes() for r in range(2)]
+            if got != [want, want]:
+                raise RuntimeError(f"gloo gather of window {w} differs from merge_blobs")
+            blobs += pair
+        times = [json.loads(Path(f"{out}.times{r}").read_text()) for r in range(2)]
+    warm = [t for ts in times for t in ts[1:]]
+    print(f"[G] gloo, 2 processes on the card's host: {G_GATHER_WINDOWS} windows gathered, "
+          f"merged bytes equal merge_blobs of both blobs; gather ms per window (host clock) "
+          f"first {max(ts[0] for ts in times) * 1e3:.3f}, then median "
+          f"{statistics.median(warm) * 1e3:.3f}; spawn to join {wall:.1f} s | card: {card}")
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        col = SnapshotCollector()
+        got = col._allgather(blobs[0])
+        empty = col._allgather(b"")
+        t0 = time.perf_counter()
+        for b in blobs:
+            col._allgather(b)
+        nccl_ms = (time.perf_counter() - t0) / len(blobs) * 1e3
+    finally:
+        dist.destroy_process_group()
+    if got != [blobs[0]] or empty != [None]:
+        raise RuntimeError("the NCCL all-gather did not return the blob")
+    print(f"[G] nccl, world size 1 on the card: _allgather returned the {len(blobs[0])}-byte "
+          f"blob and an empty payload as None; {nccl_ms:.3f} ms per call (host clock, "
+          f"sizes and payload, {len(blobs)} calls) | card: {card}")
+    return dict(gloo_ms=statistics.median(warm) * 1e3, nccl_ms=nccl_ms)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1020,7 +1261,7 @@ def main() -> int:
     # -- D: training (no kernel on this path) -------------------------------------------
     free()
     phase_d_card_vs_cpu(torch, dev)
-    phase_d_full_width(torch, dev, counters, card, bf16_peak)
+    d_run = phase_d_full_width(torch, dev, counters, card, bf16_peak)
     phase_d_checkpoint(torch, dev)
     print(f"[D] passed; smoke ran {time.perf_counter() - t_start:.1f} s after the card check")
 
@@ -1048,6 +1289,19 @@ def main() -> int:
               f"{r['tok_s']:.1f} tok/s; peak memory {r['peak_gb']:.2f} GB | card: {card}")
     runs.update(f_runs)
     print(f"[F] passed; smoke ran {time.perf_counter() - t_start:.1f} s after the card check")
+
+    # -- G: the case studies, the chaos harness, the learned diagnosis, transport -------
+    free()
+    for fn in counters.values():
+        fn.launches = 0
+    phase_g_case_studies(card)
+    phase_g_train(torch, dev, counters, card, d_run["layers"])
+    phase_g_transport(torch, card)
+    g_launches = {name: fn.launches for name, fn in counters.items()}
+    if any(g_launches.values()):
+        raise RuntimeError(f"phase G launched kernels: {g_launches}")
+    print(f"[G] passed, kernel launches {g_launches}; smoke ran "
+          f"{time.perf_counter() - t_start:.1f} s after the card check")
 
     def launches(name):
         return sum(r["launches"][name] for r in runs.values())

@@ -23,15 +23,24 @@ engine; fired rebalance/reshard actions act on the simulated pod
 Training runs the plain forms the reference trains with; none of the
 port's kernels (which have no backward) is launched.
 
+The analysis side takes the reference's flags as the reference wires them:
+``--pod-gather`` all-gathers every host's window shard into one m-rank
+snapshot before analysis (``launch/collect.SnapshotCollector`` over the
+default ``torch.distributed`` group; one process without a group, same
+path, one shard); ``--chaos-seed`` shards each window into
+``--chaos-hosts`` per-host blobs, injects seeded transport faults plus a
+forced analyzer fault at window 1 and a truncated host-1 blob at window 2
+(``perfdbg/chaos``), merges leniently (quarantining damaged hosts into the
+gap mask) and analyzes under supervision; ``--diagnosis learned`` attaches
+the softmax classifier fit on a generated corpus (``perfdbg/corpus``).
+
 whisper-large-v3 is refused before the first step: the data pipeline gives
 token batches only, and an encoder-decoder needs frame embeddings beside
 them (the reference's trainer fails for want of them as well).
 
-Not ported yet, each refused with an error naming its slice:
-``--pod-gather``, and ``--chaos-seed`` with ``--chaos-hosts``
-(``launch/collect`` and ``perfdbg/chaos``), ``--costs hlo`` (per-region
-costs measured with ``torch.utils.flop_counter``), ``--diagnosis learned``
-(a jax-free ``perfdbg/corpus.fit_learned``).
+Not ported yet, refused with an error naming its slice: ``--costs hlo``
+(per-region costs measured with ``torch.utils.flop_counter``), and with it
+``--schema tpu`` without ``--costs analytic``.
 """
 from __future__ import annotations
 
@@ -51,25 +60,23 @@ from repro_torch.configs import get_config, list_archs, reduced_config
 from repro_torch.core import (AnalysisSession, AsyncAnalysisSession,
                               PolicyEngine, RegionTree, SessionReport,
                               WindowJournal, make_policies)
+from repro_torch.core.policy import CollectorQuarantinePolicy
 from repro_torch.core.roughset import ROLE_IO
 from repro_torch.data.pipeline import Partition, SyntheticTokens
 from repro_torch.device import device_label, resolve_device, synchronize
 from repro_torch.launch import steps as steps_lib
+from repro_torch.launch.collect import (SnapshotCollector, TransportHealth,
+                                        merge_blobs)
 from repro_torch.models.config import ModelConfig
 from repro_torch.optim import adamw
 from repro_torch.perfdbg import AnalyticCosts, Instrumenter, RegionRecorder
+from repro_torch.perfdbg import chaos as chaos_mod
 from repro_torch.perfdbg.instrument import CPU_CLOCK, NOMINAL_HZ
 from repro_torch.perfdbg.schema import SUM
 
 NOT_PORTED = {
-    "pod_gather": "--pod-gather needs launch/collect, not ported yet "
-                  "(ROADMAP section 1.10)",
-    "chaos_seed": "--chaos-seed and --chaos-hosts need perfdbg/chaos, not "
-                  "ported yet (ROADMAP section 1.13)",
     "costs_hlo": "--costs hlo (per-region costs measured on the step) is not "
                  "ported yet (ROADMAP section 1.7); pass --costs analytic",
-    "learned": "--diagnosis learned needs a jax-free perfdbg/corpus."
-               "fit_learned, not ported yet (ROADMAP section 1)",
 }
 
 
@@ -87,6 +94,8 @@ class TrainResult:
     peak_bytes: int               # torch.cuda.max_memory_allocated (0 on the CPU)
     start_step: int
     final_ckpt: Optional[str]
+    health: Optional[TransportHealth]   # per-host transport counters under
+                                        # --chaos-seed or --pod-gather
 
 
 def build_config(args) -> ModelConfig:
@@ -192,8 +201,8 @@ def parse_args(argv=None):
                     choices=("rough", "threshold", "learned"),
                     help="diagnosis strategy for the window stream: the "
                          "paper's rough-set path (default), calibrated "
-                         "per-role thresholds ('learned' is not ported "
-                         "yet)")
+                         "per-role thresholds, or the small learned "
+                         "classifier trained on a generated corpus")
     ap.add_argument("--policies", default="",
                     help="comma list of window-adaptive policies to attach "
                          "(rebalance,reshard,quarantine or 'all'); empty = "
@@ -227,7 +236,7 @@ def parse_args(argv=None):
     ap.add_argument("--supervised", action="store_true",
                     help="contain analysis failures: a window whose "
                          "analysis raises is tombstoned as a FAILED entry "
-                         "and the run continues")
+                         "and the run continues (implied by --chaos-seed)")
     ap.add_argument("--escalate-after", type=int, default=3,
                     help="under --supervised: consecutive failed windows "
                          "before the crash is considered real and re-raised")
@@ -236,10 +245,14 @@ def parse_args(argv=None):
                          "crash-safe journal (core.journal.replay rebuilds "
                          "the byte-identical report after a crash)")
     ap.add_argument("--chaos-seed", type=int, default=None,
-                    help="not ported yet: refused")
-    ap.add_argument("--chaos-hosts", type=int, default=None,
-                    help="not ported yet (used only under --chaos-seed): "
-                         "refused")
+                    help="chaos demo: shard each window into per-host "
+                         "blobs, inject seeded transport faults plus a "
+                         "forced analyzer exception, merge leniently "
+                         "(quarantining corrupt hosts), and analyze under "
+                         "supervision")
+    ap.add_argument("--chaos-hosts", type=int, default=2,
+                    help="hosts to shard each window across under "
+                         "--chaos-seed (must be <= the pod rank count)")
     ap.add_argument("--resume", action="store_true")
     args = ap.parse_args(argv)
     if args.data_hosts > 1 and args.sim_ranks > 1:
@@ -249,14 +262,8 @@ def parse_args(argv=None):
     if args.data_hosts > 1 and args.batch < args.data_hosts:
         ap.error(f"--data-hosts {args.data_hosts} needs --batch >= "
                  f"{args.data_hosts} (every host gets at least one row)")
-    if args.pod_gather:
-        ap.error(NOT_PORTED["pod_gather"])
-    if args.chaos_seed is not None or args.chaos_hosts is not None:
-        ap.error(NOT_PORTED["chaos_seed"])
     if args.costs == "hlo" or (args.costs is None and args.schema == "tpu"):
         ap.error(NOT_PORTED["costs_hlo"])
-    if args.diagnosis == "learned":
-        ap.error(NOT_PORTED["learned"])
     if get_config(args.arch).is_encdec:
         ap.error(f"--arch {args.arch}: an encoder-decoder trains on frame "
                  "embeddings beside its tokens, and the synthetic data "
@@ -576,19 +583,53 @@ def run(argv=None) -> TrainResult:
     if args.diagnosis == "threshold":
         from repro_torch.core.diagnosis import ThresholdStrategy
         strategy = ThresholdStrategy()
+    elif args.diagnosis == "learned":
+        from repro_torch.perfdbg.corpus import default_learned_strategy
+        strategy = default_learned_strategy()
     if strategy is not None:
         print(f"[train] diagnosis strategy: {strategy.name}", flush=True)
 
-    # fault containment surfaces: the crash-safe journal and supervised
-    # analysis
-    supervised = args.supervised
+    # fault containment surfaces: the chaos injector (seeded transport +
+    # analyzer faults, forced analyzer fault at window 1 and a truncated
+    # host-1 blob at window 2 so the demo's audit lines are deterministic),
+    # the transport health record quarantine policies consume, the
+    # crash-safe journal, and supervised analysis.
+    chaos = None
+    health = None
+    if args.chaos_seed is not None:
+        if args.chaos_hosts < 1 or args.chaos_hosts > R:
+            print(f"error: --chaos-hosts must be in [1, {R}] "
+                  f"(the pod has {R} ranks)", file=sys.stderr)
+            raise SystemExit(2)
+        chaos = chaos_mod.ChaosInjector(
+            args.chaos_seed, rates=chaos_mod.DEFAULT_RATES,
+            force={"analyzer": [(1, 0)],
+                   "truncate": [(2, min(1, args.chaos_hosts - 1))]})
+        print(f"[chaos] injector armed: seed {args.chaos_seed}, "
+              f"{args.chaos_hosts} host shard(s) per window", flush=True)
+    supervised = args.supervised or chaos is not None
+    if chaos is not None or args.pod_gather:
+        health = TransportHealth()
+    if engine is not None and health is not None:
+        for p in engine.policies:
+            if isinstance(p, CollectorQuarantinePolicy):
+                p.health = health
+                if chaos is not None:
+                    # short demo runs: one bad window is already suspicious
+                    p.corrupt_windows = 1
     journal = WindowJournal(args.journal) if args.journal else None
 
     def on_failure(entry):
         print(f"[analysis] window {entry.title()} FAILED: {entry.error}",
               flush=True)
 
-    base_session = AnalysisSession(tree, strategy=strategy)
+    collector = None
+    if args.pod_gather:
+        collector = SnapshotCollector(strict=False, health=health)
+    if chaos is not None:
+        base_session = chaos_mod.ChaosSession(tree, chaos, strategy=strategy)
+    else:
+        base_session = AnalysisSession(tree, strategy=strategy)
     if args.sync_analysis:
         session = base_session
         pipeline = None
@@ -617,6 +658,32 @@ def run(argv=None) -> TrainResult:
         # keyed by label, not index: under drop_oldest the session's entry
         # indices fall behind the recorder's snapshot indices
         win_tokens[label] = (last_step - win_start + 1) * tokens_per_step
+        try:
+            if chaos is not None:
+                # shard the pod snapshot into per-host blobs as a real
+                # collector would, run each through the fault injector,
+                # and merge leniently — damaged hosts quarantine into the
+                # gap mask instead of crashing the step loop
+                blobs = chaos_mod.shard_blobs(snap, args.chaos_hosts)
+                mangled = [chaos.mangle_blob(b, snap.index, h)
+                           for h, b in enumerate(blobs)]
+                snap = merge_blobs(mangled, tree=tree,
+                                   total_ranks=snap.n_ranks,
+                                   strict=False, health=health)
+                for h in sorted(health.last_statuses):
+                    status = health.last_statuses[h]
+                    if status != "ok":
+                        print(f"[transport] window w{snap.index} host {h}: "
+                              f"{status}", flush=True)
+            elif collector is not None:
+                snap = collector.gather(snap)
+        except ValueError:
+            # every shard was lost or quarantined: there is no window to
+            # analyze, but the run must keep training
+            win_tokens.pop(label, None)
+            print(f"[analysis] window w{snap.index} dropped: "
+                  f"no contributors", flush=True)
+            return
         if pipeline is not None:           # off-critical-path: enqueue only
             pipeline.submit(snap, label=label)
         else:
@@ -712,6 +779,8 @@ def run(argv=None) -> TrainResult:
         if pipeline.journal_errors:
             print(f"[journal] {pipeline.journal_errors} append(s) failed "
                   f"(contained)", flush=True)
+    if health is not None and health.windows:
+        print(health.render(), flush=True)
     if journal is not None:
         print(f"[journal] {journal.appended} window(s) journaled to "
               f"{journal.path}", flush=True)
@@ -765,7 +834,7 @@ def run(argv=None) -> TrainResult:
         grad_norms=grad_norms, step_ms=step_ms, adamw_ms=adamw_ms,
         tokens_per_step=tokens_per_step,
         peak_bytes=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0,
-        start_step=start_step, final_ckpt=final_ckpt)
+        start_step=start_step, final_ckpt=final_ckpt, health=health)
 
 
 def main(argv=None) -> int:

@@ -27,7 +27,9 @@ COPIED = [f"core/{m}.py" for m in (
     "external", "internal", "analyzer", "diagnosis", "session", "pipeline",
     "policy", "journal")] + [f"perfdbg/{m}.py" for m in (
         "schema", "recorder", "instrument", "straggler", "costs")] + [
-    "models/config.py", "data/pipeline.py"]
+    "models/config.py", "data/pipeline.py"] + [
+    f"perfdbg/workloads/{m}.py" for m in ("__init__", "st", "npar1way")] + [
+    "perfdbg/chaos.py"]
 IMPORT = re.compile(r"^(\s*from )repro\.", re.M)
 
 M, WINDOWS = 8, 5

@@ -421,3 +421,19 @@ def test_train_step_on_card_launches_no_kernel(card, arch):
     assert [fn.launches for fn in counters] == before
     (l0, n0), (l1, n1) = metrics.values()
     assert l1 == pytest.approx(l0, rel=1e-4) and n1 == pytest.approx(n0, rel=1e-4)
+
+
+def test_collector_allgather_moves_blobs_on_the_card(card, tmp_path):
+    """``SnapshotCollector._allgather`` under NCCL (world size 1): the sizes
+    and payloads go through device tensors and come back as the blobs."""
+    import torch.distributed as dist
+    from repro_torch.launch.collect import SnapshotCollector
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path / 'init'}",
+                            rank=0, world_size=1)
+    try:
+        col = SnapshotCollector()
+        blob = bytes(range(256)) * 3
+        assert col._allgather(blob) == [blob]
+        assert col._allgather(b"") == [None]
+    finally:
+        dist.destroy_process_group()

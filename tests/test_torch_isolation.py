@@ -38,7 +38,11 @@ def test_import_loads_no_jax_and_no_reference():
     out = subprocess.run([sys.executable, "-c", PROBE], env=env, check=True,
                          capture_output=True, text=True, timeout=300)
     got = json.loads(out.stdout.strip().splitlines()[-1])
-    for name in ("launch.serve", "launch.train", "optim.adamw", "ckpt.checkpoint"):
+    for name in ("launch.serve", "launch.train", "optim.adamw", "ckpt.checkpoint",
+                 "launch.collect", "launch.st_case_study",
+                 "launch.npar1way_case_study", "perfdbg.chaos", "perfdbg.corpus",
+                 "perfdbg.workloads", "perfdbg.workloads.st",
+                 "perfdbg.workloads.npar1way"):
         assert f"repro_torch.{name}" in got["modules"]
     for name in ("flash_attention", "rglru_scan", "wkv6"):
         assert f"repro_torch.kernels.{name}" in got["modules"]

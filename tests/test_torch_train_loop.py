@@ -4,9 +4,13 @@ few steps each: the main smoke with checkpoints, resume at the saved step
 with the data partition restored from the manifest, an injected data
 bottleneck appearing in the window that contains it, the simulated pod's
 rebalance firing, the partitioned pipeline's reshard actuation, the
-refusal of every flag whose slice is not ported yet, the six families of
-this slice training a few steps, and the refusal, before the first step,
-to checkpoint a run with bf16 parameters (mixtral's).  Without
+refusal of ``--costs hlo`` (not ported yet), the six families of slice 7
+training a few steps, and the refusal, before the first step, to
+checkpoint a run with bf16 parameters (mixtral's).  The analysis side's
+flags run as the reference's: ``--pod-gather`` delivers every window,
+``--chaos-seed`` leaves the reference's audit lines on the same command
+line, and ``--diagnosis learned`` diagnoses each window as the reference's
+strategy diagnoses the same window blobs.  Without
 ``--device cpu`` and without a card the trainer raises; it never falls back
 to the host."""
 import math
@@ -135,18 +139,87 @@ def test_data_hosts_reshard_actuates(capsys):
 
 
 @pytest.mark.parametrize("flags,reason", [
-    (["--pod-gather"], "pod_gather"),
-    (["--chaos-seed", "3"], "chaos_seed"),
-    (["--chaos-hosts", "2"], "chaos_seed"),
     (["--costs", "hlo"], "costs_hlo"),
     (["--schema", "tpu"], "costs_hlo"),
-    (["--diagnosis", "learned"], "learned"),
 ])
 def test_unported_flags_raise(flags, reason, capsys):
     with pytest.raises(SystemExit) as exc:
         main([*SMALL, "--steps", "1", *flags])
     assert exc.value.code == 2
     assert NOT_PORTED[reason] in capsys.readouterr().err
+
+
+def test_only_hlo_costs_stay_unported():
+    assert list(NOT_PORTED) == ["costs_hlo"]
+
+
+def test_pod_gather_delivers_every_window(capsys):
+    res = run([*SMALL, "--steps", "6", "--analyze-every", "2", "--pod-gather",
+               "--policies", "quarantine"])
+    assert len(res.report.windows) == 3
+    assert not any(w.failed for w in res.report.windows)
+    assert res.health.windows == 3 and res.health.ok[0] == 3
+    assert res.health.bad(0) == 0 and res.health.missing[0] == 0
+    assert "transport health: 3 windows" in capsys.readouterr().out
+
+
+CHAOS = ["--steps", "6", "--analyze-every", "2", "--sim-ranks", "4",
+         "--chaos-seed", "3", "--chaos-hosts", "2", "--policies", "all"]
+# the audit lines, cut where a line printed by another thread may follow:
+# the step loop's, in their order, and the analysis thread's FAILED lines,
+# in theirs (the two threads' lines interleave as the scheduler has it)
+AUDIT = re.compile(r"\[chaos\][^\[\n]*|\[transport\][^\[\n]*|transport health:.*"
+                   r"|  host \d+: ok=.*")
+FAILED = re.compile(r"\[analysis\] window [^\[\n]*FAILED[^\[\n]*")
+
+
+def _audit(out):
+    return AUDIT.findall(out), FAILED.findall(out)
+
+
+def test_chaos_audit_lines_match_the_reference(capsys):
+    from repro.launch.train import main as reference_main
+    res = run([*SMALL, *CHAOS])
+    port, port_failed = _audit(capsys.readouterr().out)
+    assert reference_main(SMALL[2:] + CHAOS) == 0
+    assert (port, port_failed) == _audit(capsys.readouterr().out)
+    assert "[chaos] injector armed: seed 3, 2 host shard(s) per window" in port
+    assert "[transport] window w2 host 1: corrupt" in port
+    assert any("FAILED: ChaosError: injected analyzer fault at window 1" in l
+               for l in port_failed)
+    # the forced analyzer fault is a supervised tombstone; host 1's ranks
+    # are gap-masked in window 2
+    windows = res.report.windows
+    assert [w.failed for w in windows] == [False, True, False]
+    assert set(windows[2].gap_ranks) == {2, 3}
+    assert res.health.corrupt[1] >= 1
+
+
+def test_chaos_hosts_beyond_the_pod_exit_2(capsys):
+    with pytest.raises(SystemExit) as exc:
+        main([*SMALL, "--steps", "1", "--sim-ranks", "4", "--chaos-seed", "3",
+              "--chaos-hosts", "5"])
+    assert exc.value.code == 2
+    assert "--chaos-hosts must be in [1, 4]" in capsys.readouterr().err
+
+
+def test_learned_diagnosis_matches_the_reference(tmp_path, capsys):
+    from repro.core import journal as jjournal
+    from repro.perfdbg.corpus import default_learned_strategy
+    path = tmp_path / "windows.journal"
+    res = run([*SMALL, "--steps", "6", "--analyze-every", "2", "--sim-ranks", "4",
+               "--inject-bottleneck-at", "3", "--diagnosis", "learned",
+               "--journal", str(path)])
+    assert "[train] diagnosis strategy: learned" in capsys.readouterr().out
+    port = [w.diagnosis for w in res.report.windows]
+    ref = [w.diagnosis for w in jjournal.replay(
+        str(path), strategy=default_learned_strategy()).report().windows]
+    assert len(port) == len(ref) == 3
+    assert any(d.kind != "none" for d in port)
+    assert [(d.kind, d.regions, d.ranks, d.scope, d.strategy) for d in port] == \
+        [(d.kind, d.regions, d.ranks, d.scope, d.strategy) for d in ref]
+    assert [d.confidence for d in port] == pytest.approx(
+        [d.confidence for d in ref], rel=1e-5)
 
 
 def test_tpu_schema_with_analytic_costs_runs(capsys):
