@@ -73,7 +73,9 @@ script.  Phases, each raising on failure (nothing is caught):
          staged kernel's compiled schedule; K2 and K3 also at their decode
          shapes (S = 1 from h0, T = 1 from a state; device time over a CUDA
          graph, since an eager call costs the host more), with K3's grid and
-         compiled schedule (CTAs resident per SM) printed;
+         compiled schedule (CTAs resident per SM) printed; K1 also at the
+         prefill shape (2 x 2048, causal) of moonshot-v1-16b-a3b,
+         nemotron-4-15b, qwen1.5-110b and pixtral-12b;
   D      training, which runs none of the kernels (they have no backward; the
          reference trains through its plain forms too):
            1. one train step of the reduced yi-34b (d_model 256) on the card
@@ -135,7 +137,25 @@ script.  Phases, each raising on failure (nothing is caught):
               gather seeded windows with ``SnapshotCollector``, and the
               merged bytes must equal ``merge_blobs`` of both blobs in one
               process; one NCCL group of world size 1 on the card moves a
-              blob through ``SnapshotCollector._allgather`` on the device.
+              blob through ``SnapshotCollector._allgather`` on the device;
+  H      measured step costs, mesh, sharding and runtime, which launch no
+         kernel (every count set to 0 before the phase and required to be 0
+         after it):
+           1. ``train.run`` on D.2's command line with ``--schema tpu`` (so
+              ``--costs hlo``): the step's flops, HBM and collective bytes
+              counted once on the meta device before the first step; the
+              counted matmul flops within 2 % of ``model_flops`` plus
+              ``remat_flops``, the warm step within 5 % of D.2's, the
+              recorded step attributes those of the counted provider;
+           2. the count of one train step of the full yi-34b (60 layers) at
+              the reference's train_4k shape (256 x 4096, 4 microbatches) on
+              the meta device, with no device memory: flops, HBM bytes and
+              their intensity against the H100 ridge;
+           3. ``make_host_mesh`` over an NCCL world of one on the card and
+              one ``runtime.constrain`` of a CUDA DTensor inside
+              ``sharding_context`` (the resolved placements, the values
+              unchanged); a (2, 16, 16) production mesh over a fake world
+              of 512 with one resolved placement's local shape.
 
 The last lines are the card's name and power limit, one JSON line of kernel
 records, and the verdict ``{"ok": true, "device": {...}}``.
@@ -195,6 +215,16 @@ G_CHAOS = ["--steps", "9", "--sim-ranks", "8", "--chaos-seed", "3", "--chaos-hos
            "--diagnosis", "learned", "--policies", "all"]
 G_POD = TRAIN_SMALL + ["--steps", "6", "--analyze-every", "3", "--pod-gather"]
 G_GATHER_WINDOWS = 3             # windows each gloo process gathers in G.3
+# phase C: K1 at the prefill shape of phase E's models served at 2 x 2048
+C_SMALL_ARCHS = ("moonshot-v1-16b-a3b", "nemotron-4-15b", "qwen1.5-110b", "pixtral-12b")
+C_SMALL_BATCH, C_SMALL_PROMPT = 2, 2048
+# phase H: D.2's run under --schema tpu (so --costs hlo); the count of one
+# step of the full yi-34b at the reference's train_4k shape (global batch
+# 256 x 4096, yi-34b's 4 microbatches: repro/configs/__init__.py:37,46)
+H_ARGV = ["--schema", "tpu"]
+H2_BATCH, H2_SEQ, H2_MICROBATCHES = 256, 4096, 4
+H_FLOPS_RTOL = 0.02              # counted matmul flops against the closed form
+H_STEP_RTOL = 0.05               # H.1's warm step against D.2's
 TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2), "float32": dict(rtol=1e-5, atol=1e-5)}
 LOGITS_TOL = dict(rtol=5e-2, atol=1e-1)   # bf16 model, as the JAX package's
                                           # prefill/decode consistency test
@@ -729,6 +759,26 @@ def model_flops(cfg, batch, seq):
         f"{attn / 1e12:.2f} TFLOP")
 
 
+def remat_flops(cfg, batch, seq):
+    """(matmul FLOPs that remat adds to ``model_flops``, in words), as the
+    port's training step runs them (``torch.utils.checkpoint``, which stops
+    a recompute once the backward has what it needs): every layer's forward
+    once more but its last matmul (the MLP's out-projection, whose output no
+    backward reads), QK^T a third time where ``mha`` checkpoints its
+    q-chunks inside the layer's (S > 512), and each loss chunk's logits
+    where the loss has several chunks (S > 512)."""
+    d, H, K, dh, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_ff
+    per_layer = d * H * dh + 2 * d * K * dh + H * dh * d + 3 * d * f
+    tokens = batch * seq
+    linear = 2 * cfg.n_layers * (per_layer - f * d) * tokens
+    attn = (6 if seq > 512 else 4) * cfg.n_layers * batch * seq * seq * H * dh
+    logits = 2 * d * cfg.vocab_size * tokens if seq > 512 else 0
+    return linear + attn + logits, (
+        f"2 x L x (layer matmul parameters - the MLP out-projection) x tokens + "
+        f"{6 if seq > 512 else 4} x L x B x S^2 x H x dh + 2 x d x V x tokens = "
+        f"{linear / 1e12:.2f} + {attn / 1e12:.2f} + {logits / 1e12:.2f} TFLOP")
+
+
 def phase_d_full_width(torch, dev, counters, card, bf16_peak):
     """D.2: the trainer at yi-34b's published widths, no kernel launched."""
     from repro_torch.launch import train
@@ -1024,6 +1074,138 @@ def phase_g_transport(torch, card):
     return dict(gloo_ms=statistics.median(warm) * 1e3, nccl_ms=nccl_ms)
 
 
+def phase_h_train(torch, counters, card, d_run):
+    """H.1: the trainer on D.2's command line under ``--schema tpu`` (so
+    ``--costs hlo``): the step's costs counted once on the meta device
+    before the first step; the counted matmul flops against the closed form
+    plus remat, the warm step against D.2's, the recorded attributes
+    against the provider's.  H.2: the count of one step of the full yi-34b
+    at the reference's train_4k shape, on the meta device only."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import steps, train
+    from repro_torch.optim import adamw
+    from repro_torch.perfdbg.attributes import RIDGE_INTENSITY
+
+    layers = d_run["layers"]
+    res = train.run(TRAIN_ARGV + ["--layers", str(layers)] + H_ARGV)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    t0 = time.perf_counter()
+    counted = steps.count_train_step(res.cfg, adamw.AdamWConfig(), 2, 2048)
+    count_s = time.perf_counter() - t0
+    st = counted.stats()
+    mf, how = model_flops(res.cfg, 2, 2048)
+    rf, rhow = remat_flops(res.cfg, 2, 2048)
+    mm = counted.matmul_total()
+    gap = abs(mm - (mf + rf)) / (mf + rf)
+    warm = res.step_ms[1:]
+    med = statistics.median(warm)
+    step_gap = abs(med - d_run["median_ms"]) / d_run["median_ms"]
+    print(f"[H] yi-34b full width x{layers} layers, {' '.join(H_ARGV)}: kernel launches "
+          f"{launches}; provider step costs " + " ".join(
+              f"{k}={v:.4e}" for k, v in sorted(res.step_costs.items())))
+    print(f"[H] the count (meta device, host clock): {count_s:.2f} s; flops {st.flops:.4e}, "
+          f"of which matmul {mm:.4e}; closed form {mf:.4e} ({how}) + remat {rf:.4e} ({rhow}) "
+          f"= {mf + rf:.4e}: gap {100 * gap:.3f} % (bound {100 * H_FLOPS_RTOL:.0f} %); HBM "
+          f"bytes {st.bytes:.4e}, collective bytes {st.total_collective_bytes:.4e}")
+    print(f"[H] warm step (steps 2-6, CUDA events): median {med:.3f} ms, range "
+          f"{min(warm):.3f}-{max(warm):.3f} ms; D.2 {d_run['median_ms']:.3f} ms: "
+          f"{100 * (med / d_run['median_ms'] - 1):+.2f} % (bound {100 * H_STEP_RTOL:.0f} %) "
+          f"| card: {card}")
+    print("[H] recorded step attributes (last window): " + " ".join(
+        f"{k}={v:.4e}" for k, v in sorted(res.step_attrs.items())))
+    if any(launches.values()):
+        raise RuntimeError(f"H.1 launched kernels: {launches}")
+    if res.step_costs["hlo_flops"] != st.flops or res.step_costs["hbm_bytes"] != st.bytes:
+        raise RuntimeError("the trainer's provider does not carry the counted step")
+    if gap > H_FLOPS_RTOL:
+        raise RuntimeError(f"counted matmul flops {mm:.4e} are {100 * gap:.2f} % from the "
+                           f"closed form {mf + rf:.4e}")
+    if step_gap > H_STEP_RTOL:
+        raise RuntimeError(f"H.1's step {med:.3f} ms is {100 * step_gap:.1f} % from D.2's")
+    window_steps = int(TRAIN_ARGV[TRAIN_ARGV.index("--analyze-every") + 1])
+    attrs = res.step_attrs
+    if not (math.isclose(attrs["hlo_flops"], window_steps * st.flops, rel_tol=1e-6)
+            and math.isclose(attrs["hbm_boundedness"], res.step_costs["hbm_boundedness"],
+                             rel_tol=1e-6)
+            and attrs["collective_bytes"] == 0.0):
+        raise RuntimeError(f"the recorded attributes are not the provider's: {attrs}")
+    del res
+    free()
+
+    cfg = get_config("yi-34b")
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    full = steps.count_train_step(cfg, adamw.AdamWConfig(), H2_BATCH, H2_SEQ,
+                                  microbatches=H2_MICROBATCHES)
+    full_s = time.perf_counter() - t0
+    fst = full.stats()
+    intensity = fst.flops / fst.bytes
+    print(f"[H] full yi-34b ({cfg.n_layers} layers) one train step at {H2_BATCH} x {H2_SEQ}, "
+          f"{H2_MICROBATCHES} microbatches, counted on the meta device in {full_s:.1f} s (host "
+          f"clock): flops {fst.flops:.4e} (matmul {full.matmul_total():.4e}), HBM bytes "
+          f"{fst.bytes:.4e}, intensity {intensity:.1f} flop/byte against the H100 ridge "
+          f"{RIDGE_INTENSITY:.1f} ({'compute' if intensity > RIDGE_INTENSITY else 'memory'} "
+          f"side); device memory allocated {torch.cuda.memory_allocated() - before} B | "
+          f"card: {card}")
+    if torch.cuda.memory_allocated() != before:
+        raise RuntimeError("the meta count allocated device memory")
+    return dict(count_s=count_s, matmul=mm, closed_form=mf + rf, gap=gap, step_ms=med,
+                full_flops=fst.flops, full_bytes=fst.bytes, full_s=full_s)
+
+
+def phase_h_mesh(torch, card):
+    """H.3: a host mesh over an NCCL world of one on the card and one
+    ``constrain`` of a CUDA DTensor inside ``sharding_context``; a
+    production (2, 16, 16) mesh over a fake world of 512 with one resolved
+    placement's local shape."""
+    import socket
+
+    import torch.distributed as dist
+    from torch.distributed.tensor import Replicate, distribute_tensor
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    from repro_torch import runtime
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.sharding import resolve_spec, spec_placements
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", rank=0,
+                            world_size=1)
+    try:
+        mesh = mesh_lib.make_host_mesh()
+        x = torch.randn(YI_BATCH, YI_PROMPT, H, DH, device="cuda", dtype=torch.bfloat16)
+        dx = distribute_tensor(x, mesh, [Replicate(), Replicate()])
+        axes = ("batch", None, "heads")
+        with runtime.sharding_context(mesh):
+            y, ms = timed(lambda: runtime.constrain(dx, *axes))
+        want = spec_placements(resolve_spec(x.shape, axes, mesh), mesh)
+        same = torch.equal(y.full_tensor(), x)
+        print(f"[H] nccl world of 1: host mesh {mesh_lib.mesh_axis_sizes(mesh)} on "
+              f"{mesh.device_type}; constrain{axes} of a {tuple(x.shape)} bf16 DTensor gave "
+              f"{tuple(y.placements)} (resolve_spec: {want}) in {ms:.3f} ms (CUDA events), "
+              f"values {'unchanged' if same else 'CHANGED'} | card: {card}")
+        if tuple(y.placements) != want or not same:
+            raise RuntimeError("constrain did not give the resolved placements")
+    finally:
+        dist.destroy_process_group()
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=512)
+    try:
+        pod = mesh_lib.make_production_mesh(multi_pod=True, device_type="cpu")
+        shape, axes = (7168, 20480), ("embed", "mlp")      # yi-34b's MLP in-projection
+        spec = resolve_spec(shape, axes, pod)
+        placements = spec_placements(spec, pod)
+        local = distribute_tensor(torch.empty(shape, device="meta"), pod,
+                                  placements).to_local().shape
+        print(f"[H] fake world of 512: production mesh {mesh_lib.mesh_axis_sizes(pod)}; "
+              f"{axes} {shape} -> spec {spec}, placements {placements}, local {tuple(local)} "
+              f"(torch {torch.__version__})")
+        if spec != ("data", "model") or tuple(local) != (7168 // 16, 20480 // 16):
+            raise RuntimeError("the production mesh's placement is not the resolved one")
+    finally:
+        dist.destroy_process_group()
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1127,6 +1309,14 @@ def main() -> int:
              dict(causal=True), sdpa_causal(torch), 18)):
         rec["flash_attention"][key] = time_k1(torch, fa, shape, kw, ops.attention_ref,
                                               library, rates, card, seed=seed, Sk=sk)
+    # the four models phase E serves at 2 x 2048: causal, no window, softcap
+    # or query scale
+    for seed, arch in enumerate(C_SMALL_ARCHS, start=19):
+        c = get_config(arch)
+        shape = (C_SMALL_BATCH, C_SMALL_PROMPT, c.n_heads, c.n_kv_heads, c.d_head)
+        rec["flash_attention"][f"at_{arch}"] = time_k1(
+            torch, fa, shape, dict(causal=True), ops.attention_ref, sdpa_causal(torch),
+            rates, card, seed=seed)
 
     # K3 at rwkv6-3b's prefill shape
     args = wkv_inputs(RWKV_BATCH, RWKV_PROMPT, RWKV_H, RWKV_DH, torch.bfloat16, seed=9,
@@ -1301,6 +1491,18 @@ def main() -> int:
     if any(g_launches.values()):
         raise RuntimeError(f"phase G launched kernels: {g_launches}")
     print(f"[G] passed, kernel launches {g_launches}; smoke ran "
+          f"{time.perf_counter() - t_start:.1f} s after the card check")
+
+    # -- H: measured step costs, mesh, sharding and runtime (no kernel) -----------------
+    free()
+    for fn in counters.values():
+        fn.launches = 0
+    phase_h_train(torch, counters, card, d_run)
+    phase_h_mesh(torch, card)
+    h_launches = {name: fn.launches for name, fn in counters.items()}
+    if any(h_launches.values()):
+        raise RuntimeError(f"phase H launched kernels: {h_launches}")
+    print(f"[H] passed, kernel launches {h_launches}; smoke ran "
           f"{time.perf_counter() - t_start:.1f} s after the card check")
 
     def launches(name):

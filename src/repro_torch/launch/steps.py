@@ -8,9 +8,12 @@ microbatches), and applies the hand-written AdamW in place.
 ``state_tree`` / ``load_state_tree`` carry the state to and from the
 reference's pytree layout (``params/...``, ``opt/m/...``, ``opt/v/...``,
 ``opt/step``, ``opt/master/...`` by checkpoint keypath), which the
-checkpoints of both packages share.  The reference's jit, sharding and HLO
-helpers (``jit_train_step``, ``state_specs``, ``compiled_hlo``,
-``hlo_cost_provider``) have no counterpart yet.
+checkpoints of both packages share.  ``count_train_step`` counts one step's
+costs on the ``meta`` device (the counterpart of ``compiled_hlo``: no HLO,
+the step's dispatched ops, ``launch.hlo_analysis``) and
+``hlo_cost_provider`` turns the count into the measured cost provider.
+The reference's jit and sharding helpers (``jit_train_step``,
+``state_specs``) have no counterpart yet.
 """
 from __future__ import annotations
 
@@ -105,6 +108,39 @@ def make_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig,
         return state, metrics
 
     return train_step
+
+
+# ---------------------------------------------------------------------------
+# Measured costs (the counted half of the cost-provider layer)
+# ---------------------------------------------------------------------------
+
+def count_train_step(cfg: ModelConfig, opt_cfg: adamw.AdamWConfig, batch: int,
+                     seq: int, microbatches: int = 1):
+    """``hlo_analysis.Analyzer`` of one call of ``make_train_step`` on a
+    fresh state and a (batch, seq) token batch on the ``meta`` device:
+    nothing is allocated and nothing runs, only shapes propagate, so the
+    count costs host time alone and is the same on any host.  The
+    counterpart of the reference's ``compiled_hlo``, which lowers and
+    compiles the step once more."""
+    from .hlo_analysis import Analyzer
+    model = Model(cfg, "meta")
+    state = state_for(model, opt_cfg)
+    tokens = torch.zeros((batch, seq), dtype=torch.long, device="meta")
+    step = make_train_step(cfg, opt_cfg, microbatches=microbatches)
+    return Analyzer(step, state, {"tokens": tokens, "labels": tokens})
+
+
+def hlo_cost_provider(analyzer, regions, anchor: str = "step", base=None):
+    """Build a ``perfdbg.costs.HloCosts`` provider from one counted step:
+    its per-scope stats (``analyzer.stats_by_computation()``) anchored at
+    ``regions``' ``anchor`` (the region whose body runs the step),
+    name-prefix re-attribution to the other regions, analytic ``base``
+    fallback for regions the step cannot see (host-side data / checkpoint
+    I/O).  This glue lives in the launch layer so ``perfdbg`` never
+    imports the counter."""
+    from ..perfdbg.costs import HloCosts
+    return HloCosts(regions, base=base).add_module(
+        analyzer.stats_by_computation(), entry=analyzer.entry, anchor=anchor)
 
 
 # ---------------------------------------------------------------------------

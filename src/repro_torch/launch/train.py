@@ -34,13 +34,18 @@ forced analyzer fault at window 1 and a truncated host-1 blob at window 2
 gap mask) and analyzes under supervision; ``--diagnosis learned`` attaches
 the softmax classifier fit on a generated corpus (``perfdbg/corpus``).
 
+The schema's cost attributes come from ``--costs``: closed-form estimates
+(``analytic``, the default under ``--schema paper``) or, under ``hlo`` (the
+default under ``--schema tpu``), the flops, HBM bytes and collective bytes
+of one train step counted once before the first step, on copies of the
+state and batch on the ``meta`` device (``steps.count_train_step``,
+``launch/hlo_analysis``), over the analytic estimates for the host-side
+regions.  A count that fails raises; the run never carries on with the
+estimates.
+
 whisper-large-v3 is refused before the first step: the data pipeline gives
 token batches only, and an encoder-decoder needs frame embeddings beside
 them (the reference's trainer fails for want of them as well).
-
-Not ported yet, refused with an error naming its slice: ``--costs hlo``
-(per-region costs measured with ``torch.utils.flop_counter``), and with it
-``--schema tpu`` without ``--costs analytic``.
 """
 from __future__ import annotations
 
@@ -50,7 +55,7 @@ import dataclasses
 import os
 import sys
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -74,12 +79,6 @@ from repro_torch.perfdbg import chaos as chaos_mod
 from repro_torch.perfdbg.instrument import CPU_CLOCK, NOMINAL_HZ
 from repro_torch.perfdbg.schema import SUM
 
-NOT_PORTED = {
-    "costs_hlo": "--costs hlo (per-region costs measured on the step) is not "
-                 "ported yet (ROADMAP section 1.7); pass --costs analytic",
-}
-
-
 @dataclasses.dataclass
 class TrainResult:
     cfg: ModelConfig
@@ -96,6 +95,9 @@ class TrainResult:
     final_ckpt: Optional[str]
     health: Optional[TransportHealth]   # per-host transport counters under
                                         # --chaos-seed or --pod-gather
+    step_costs: Dict[str, float]  # the cost provider's values for one step
+    step_attrs: Dict[str, float]  # the step region's recorded attributes,
+                                  # last window (the [report] line)
 
 
 def build_config(args) -> ModelConfig:
@@ -164,8 +166,9 @@ def parse_args(argv=None):
                     help="attribute schema for the recorder")
     ap.add_argument("--costs", default=None, choices=("analytic", "hlo"),
                     help="cost provider for schema attributes: closed-form "
-                         "estimates ('analytic'); 'hlo' is not ported yet, "
-                         "so --schema tpu needs --costs analytic")
+                         "estimates ('analytic') or counted from one step "
+                         "on the meta device ('hlo'); default hlo under "
+                         "--schema tpu, analytic otherwise")
     ap.add_argument("--sync-analysis", action="store_true",
                     help="analyze windows inline on the step loop instead of "
                          "on the async worker thread")
@@ -262,8 +265,6 @@ def parse_args(argv=None):
     if args.data_hosts > 1 and args.batch < args.data_hosts:
         ap.error(f"--data-hosts {args.data_hosts} needs --batch >= "
                  f"{args.data_hosts} (every host gets at least one row)")
-    if args.costs == "hlo" or (args.costs is None and args.schema == "tpu"):
-        ap.error(NOT_PORTED["costs_hlo"])
     if get_config(args.arch).is_encdec:
         ap.error(f"--arch {args.arch}: an encoder-decoder trains on frame "
                  "embeddings beside its tokens, and the synthetic data "
@@ -326,16 +327,26 @@ def run(argv=None) -> TrainResult:
             f"but --data-hosts is {H}; rerun with --data-hosts "
             f"{data.partition.n_hosts}")
 
-    # cost provider: where the schema's attribute fields come from — the
-    # analytic estimates (per-region measured costs are a later slice)
+    # cost provider: where the schema's attribute fields come from.  The
+    # analytic base (the estimates this driver used to inline) always
+    # covers the host-side regions; --costs hlo overlays per-region flops /
+    # HBM bytes / collective bytes counted from one step on the meta device.
     tokens_per_step = args.batch * args.seq
     region_names = ("data", "step", "checkpoint")
-    costs_mode = args.costs or "analytic"
+    costs_mode = args.costs or ("hlo" if args.schema == "tpu" else "analytic")
     provider = AnalyticCosts.for_train_step(
         active_params=cfg.active_params(), total_params=cfg.total_params(),
         d_model=cfg.d_model, n_layers=cfg.n_layers,
         tokens_per_step=tokens_per_step,
         checkpoint_io_bytes=0.0 if not args.ckpt_dir else 1.0)
+    if costs_mode == "hlo":
+        t0 = time.perf_counter()
+        counted = steps_lib.count_train_step(cfg, opt_cfg, args.batch, args.seq)
+        provider = steps_lib.hlo_cost_provider(
+            counted, region_names, anchor="step", base=provider)
+        print(f"[costs] counted one step on the meta device in "
+              f"{time.perf_counter() - t0:.2f} s (host clock)", flush=True)
+        print("[costs] coverage: " + provider.render_coverage(), flush=True)
     step_costs = provider.region_costs("step")
     flops_per_step = step_costs.get("hlo_flops", 0.0)
     print(f"[costs] {costs_mode} step: "
@@ -786,6 +797,7 @@ def run(argv=None) -> TrainResult:
               f"{journal.path}", flush=True)
     print(report.render(tree), flush=True)
     wins = rec.windows()
+    vals = {}
     if wins:
         # recorded (not provider-advertised) attribute totals of the step
         # region, last window — the end-to-end check that schema fields
@@ -834,7 +846,8 @@ def run(argv=None) -> TrainResult:
         grad_norms=grad_norms, step_ms=step_ms, adamw_ms=adamw_ms,
         tokens_per_step=tokens_per_step,
         peak_bytes=torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0,
-        start_step=start_step, final_ckpt=final_ckpt, health=health)
+        start_step=start_step, final_ckpt=final_ckpt, health=health,
+        step_costs=dict(step_costs), step_attrs=vals)
 
 
 def main(argv=None) -> int:

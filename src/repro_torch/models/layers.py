@@ -4,10 +4,12 @@ Counterpart of ``repro/models/layers.py`` for the attention blocks:
 parameters live in small ``nn.Module`` containers whose attribute names
 are the JAX parameter keys (``wq.w``, ``ln1.scale``, ``embed.table``), and
 linear weights keep the JAX layout ``(d_in, d_out)`` so weights carry
-across without transposes.  The ``apply_*`` functions take those modules
-and mirror the reference's numerics: fp32 norm math with ``1 + scale``,
-weights cast to the input's dtype, the embedding scaled in the compute
-dtype, fp32 logits.
+across without transposes.  Each container's ``axes`` names every
+parameter's logical sharding axes, as the reference's ``ParamSpec`` does
+(resolved to mesh axes by ``repro_torch.launch.sharding``).  The
+``apply_*`` functions take those modules and mirror the reference's
+numerics: fp32 norm math with ``1 + scale``, weights cast to the input's
+dtype, the embedding scaled in the compute dtype, fp32 logits.
 
 ``mha`` is the plain attention (the CPU path, the oracle of the attention
 kernel, and what training runs under autograd, as the reference trains
@@ -27,6 +29,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
+
+from ..runtime import constrain
 
 NEG_INF = -1e30
 
@@ -53,28 +57,37 @@ def _scalar(value: float, like: torch.Tensor) -> torch.Tensor:
 # Parameter containers (init: see models.model.init_params)
 # ---------------------------------------------------------------------------
 
-def raw_params(module: nn.Module, specs: Dict[str, Tuple[Tuple[int, ...], str, float]],
+Axes = Tuple[Optional[str], ...]
+
+
+def raw_params(module: nn.Module,
+               specs: Dict[str, Tuple[Tuple[int, ...], Axes, str, float]],
                dtype: torch.dtype, device) -> None:
-    """Register plain parameters on ``module``, each ``name: (shape, init,
-    scale)`` as the reference's ``ParamSpec`` (init ``normal`` draws normal
-    x scale; ``zeros``, ``ones``); ``models.model.init_params`` reads the
-    rules back from ``module.init_rules``."""
-    module.init_rules = {}
-    for name, (shape, init, scale) in specs.items():
+    """Register plain parameters on ``module``, each ``name: (shape, axes,
+    init, scale)`` as the reference's ``ParamSpec`` (init ``normal`` draws
+    normal x scale; ``zeros``, ``ones``); ``models.model.init_params``
+    reads the rules back from ``module.init_rules``, the sharding the axes
+    from ``module.axes``."""
+    module.init_rules, module.axes = {}, {}
+    for name, (shape, axes, init, scale) in specs.items():
         setattr(module, name, _param(shape, dtype, device))
         module.init_rules[name] = (init, scale)
+        module.axes[name] = axes
 
 
 class Linear(nn.Module):
-    def __init__(self, d_in: int, d_out: int, *, bias: bool = False,
-                 dtype=torch.float32, device="cpu"):
+    def __init__(self, d_in: int, d_out: int, axes: Axes, *,
+                 bias: bool = False, dtype=torch.float32, device="cpu"):
         super().__init__()
         self.init_scale = 1.0 / math.sqrt(d_in)
+        self.axes = {"w": tuple(axes), "b": (axes[1],)}
         self.w = _param((d_in, d_out), dtype, device)
         self.b = _param((d_out,), dtype, device) if bias else None
 
 
 class Norm(nn.Module):
+    axes = {"scale": ("embed",), "bias": ("embed",)}
+
     def __init__(self, d: int, kind: str, dtype=torch.float32, device="cpu"):
         super().__init__()
         self.kind = kind
@@ -83,6 +96,8 @@ class Norm(nn.Module):
 
 
 class Embed(nn.Module):
+    axes = {"table": ("vocab", "embed")}
+
     def __init__(self, vocab: int, d: int, dtype=torch.float32, device="cpu"):
         super().__init__()
         self.init_scale = 1.0
@@ -94,10 +109,10 @@ class Attention(nn.Module):
         super().__init__()
         d, H, K, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
         kw = dict(dtype=dtype, device=device)
-        self.wq = Linear(d, H * dh, bias=cfg.qkv_bias, **kw)
-        self.wk = Linear(d, K * dh, bias=cfg.qkv_bias, **kw)
-        self.wv = Linear(d, K * dh, bias=cfg.qkv_bias, **kw)
-        self.wo = Linear(H * dh, d, **kw)
+        self.wq = Linear(d, H * dh, ("embed", "q_proj"), bias=cfg.qkv_bias, **kw)
+        self.wk = Linear(d, K * dh, ("embed", "kv_proj"), bias=cfg.qkv_bias, **kw)
+        self.wv = Linear(d, K * dh, ("embed", "kv_proj"), bias=cfg.qkv_bias, **kw)
+        self.wo = Linear(H * dh, d, ("q_proj", "embed"), **kw)
 
 
 class MLP(nn.Module):
@@ -105,9 +120,10 @@ class MLP(nn.Module):
         super().__init__()
         d, f = cfg.d_model, cfg.d_ff
         kw = dict(dtype=dtype, device=device)
-        self.wi = Linear(d, f, **kw)
-        self.wg = Linear(d, f, **kw) if cfg.mlp_act.endswith("_glu") else None
-        self.wo = Linear(f, d, **kw)
+        self.wi = Linear(d, f, ("embed", "mlp"), **kw)
+        self.wg = (Linear(d, f, ("embed", "mlp"), **kw)
+                   if cfg.mlp_act.endswith("_glu") else None)
+        self.wo = Linear(f, d, ("mlp", "embed"), **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -182,7 +198,9 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     restricts attention to the last ``window`` positions.  ``pad_heads`` is
     accepted for the reference's signature and ignored: its padded heads
     are zeros sliced off before the out-projection, so the result is the
-    same without them.  Under autograd each q-chunk is checkpointed, as the
+    same without them.  ``constrain`` pins q, k, v, the scores and each
+    q-chunk (the reference's stacked chunks ``qs``) where the reference
+    does.  Under autograd each q-chunk is checkpointed, as the
     reference's are, so only one chunk's fp32 scores live in the backward."""
     B, Sq, H, dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
@@ -192,12 +210,16 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if G > 1:
         k = k.repeat_interleave(G, dim=2)
         v = v.repeat_interleave(G, dim=2)
+    q = constrain(q, "batch", None, "heads")
+    k = constrain(k, "batch", None, "heads")
+    v = constrain(v, "batch", None, "heads")
     k_pos = torch.arange(Sk, device=q.device)
     kf = k.float()
 
     def block(qc: torch.Tensor, q_pos: torch.Tensor, kf: torch.Tensor,
               v: torch.Tensor) -> torch.Tensor:
         s = torch.einsum("bqhd,bshd->bhqs", qc.float(), kf)
+        s = constrain(s, "batch", "heads")
         s = _softcap(s, softcap)
         mask = torch.ones((qc.shape[1], Sk), dtype=torch.bool, device=q.device)
         if causal:
@@ -215,7 +237,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             return checkpoint(block, *args, use_reentrant=False)
     else:
         chunk_fn = block
-    outs = [chunk_fn(q[:, c:c + q_chunk],
+    outs = [chunk_fn(constrain(q[:, c:c + q_chunk], "batch", None, "heads"),
                      q_offset + torch.arange(c, min(c + q_chunk, Sq),
                                              device=q.device), kf, v)
             for c in range(0, Sq, q_chunk)]

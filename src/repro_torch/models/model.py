@@ -24,6 +24,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..runtime import constrain, scope
 from .config import ModelConfig
 from .layers import (Embed, Linear, Norm, apply_embed, apply_linear,
                      apply_logits, apply_norm, sinusoidal, torch_dtype)
@@ -52,17 +53,17 @@ class Model(nn.Module):
                                     for kind in cfg.layer_kinds)
         self.final_norm = Norm(cfg.d_model, cfg.norm, dtype, device)
         self.logits = (None if cfg.tie_embeddings else
-                       Linear(cfg.d_model, cfg.vocab_size, dtype=dtype,
-                              device=device))
+                       Linear(cfg.d_model, cfg.vocab_size, ("embed", "vocab"),
+                              dtype=dtype, device=device))
         if cfg.is_encdec:
             self.enc_layers = nn.ModuleList(Block(cfg, "global", device)
                                             for _ in range(cfg.encoder_layers))
             self.enc_norm = Norm(cfg.d_model, cfg.norm, dtype, device)
-            self.frame_proj = Linear(cfg.d_model, cfg.d_model, dtype=dtype,
-                                     device=device)
+            self.frame_proj = Linear(cfg.d_model, cfg.d_model, ("embed", "embed2"),
+                                     dtype=dtype, device=device)
         if cfg.frontend == "vision_stub":
-            self.patch_proj = Linear(cfg.d_model, cfg.d_model, dtype=dtype,
-                                     device=device)
+            self.patch_proj = Linear(cfg.d_model, cfg.d_model, ("embed", "embed2"),
+                                     dtype=dtype, device=device)
 
     @torch.no_grad()
     def prefill(self, tokens: torch.Tensor, s_buf: int,
@@ -102,6 +103,7 @@ class Model(nn.Module):
         return apply_logits(self.logits, self.embed, x, cfg), cache
 
 
+@scope("embed")
 def _embed_inputs(model: Model, tokens: torch.Tensor,
                   patches: Optional[torch.Tensor] = None) -> torch.Tensor:
     cfg = model.cfg
@@ -115,6 +117,7 @@ def _embed_inputs(model: Model, tokens: torch.Tensor,
     return x
 
 
+@scope("encoder")
 def _encode(model: Model, frames: Optional[torch.Tensor],
             kernels: Optional[Kernels] = None, remat: bool = True) -> torch.Tensor:
     """The encoder: ``frame_proj`` of the frames (in the compute dtype, as
@@ -130,7 +133,7 @@ def _encode(model: Model, frames: Optional[torch.Tensor],
     x = x + sinusoidal(frames.shape[1], cfg.d_model, device=x.device).to(x.dtype)[None]
     pos = torch.arange(frames.shape[1], device=frames.device)
     x = run_stack(model.enc_layers, x, cfg, pos, causal=False, remat=remat,
-                  kernels=kernels)
+                  kernels=kernels, name="enc_layers")
     return apply_norm(model.enc_norm, x, cfg.norm)
 
 
@@ -150,14 +153,20 @@ def forward(model: Model, tokens: torch.Tensor,
     enc = _encode(model, frames, remat=remat) if cfg.is_encdec else None
     pos = torch.arange(tokens.shape[1], device=tokens.device)
     x = run_stack(model.layers, x, cfg, pos, encoder_out=enc, remat=remat)
-    return apply_norm(model.final_norm, x, cfg.norm)
+    with scope("final_norm"):
+        return apply_norm(model.final_norm, x, cfg.norm)
 
 
+@scope("loss")
 def chunked_loss(model: Model, hidden: torch.Tensor,
                  labels: torch.Tensor) -> torch.Tensor:
     """Mean cross-entropy with sequence-chunked logits: the (B, S, V)
     logits are never materialized; each chunk's are recomputed in the
-    backward (checkpointed)."""
+    backward (checkpointed) when there are several.  One chunk is not
+    checkpointed: its logits would live in the backward all the same, so
+    the recompute would save no memory, and the reference's compiled step
+    keeps them too (XLA merges the recompute of its one-trip scan with the
+    forward)."""
     cfg = model.cfg
     B, S, d = hidden.shape
     n = max(S // min(LOSS_CHUNK, S), 1)
@@ -168,15 +177,18 @@ def chunked_loss(model: Model, hidden: torch.Tensor,
 
     def chunk_nll(h: torch.Tensor, lab: torch.Tensor) -> torch.Tensor:
         logits = apply_logits(model.logits, model.embed, h, cfg)
+        logits = constrain(logits, "batch", None, "vocab")
         lse = torch.logsumexp(logits, dim=-1)
         gold = torch.gather(logits, -1, lab[..., None].long())[..., 0]
         return torch.sum(lse - gold)
 
+    hs = [constrain(hidden[:, i * c:(i + 1) * c], "batch") for i in range(n)]
+    ls = [constrain(labels[:, i * c:(i + 1) * c], "batch") for i in range(n)]
+    if n == 1:
+        return chunk_nll(hs[0], ls[0]) / (B * S)
     total = hidden.new_zeros((), dtype=torch.float32)
-    for i in range(n):
-        total = total + checkpoint(chunk_nll, hidden[:, i * c:(i + 1) * c],
-                                   labels[:, i * c:(i + 1) * c],
-                                   use_reentrant=False)
+    for h, lab in zip(hs, ls):
+        total = total + checkpoint(chunk_nll, h, lab, use_reentrant=False)
     return total / (B * S)
 
 

@@ -6,8 +6,10 @@ and assignments past an expert's capacity drop to the residual path.  The
 reference computes the whole block with jnp outside any Pallas kernel, so
 the port's expert products are ``torch.einsum`` and its combine is
 ``index_add``, all under autograd (the training forward runs it too).
-The reference's sharding hints (``constrain``, ``expert_parallel``) place
-arrays on a TPU mesh and change no value; they have no counterpart here.
+The reference's sharding hints are kept: ``constrain`` pins the dispatched
+tokens, the expert activations and, under ``cfg.expert_parallel``, the
+all-to-all back to token-major, on DTensors inside a
+``runtime.sharding_context``, and changes no value.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..runtime import constrain
 from .layers import Linear, _act, apply_linear, raw_params
 
 
@@ -29,11 +32,15 @@ class MoE(nn.Module):
     def __init__(self, cfg, dtype=torch.float32, device="cpu"):
         super().__init__()
         d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
-        self.router = Linear(d, E, dtype=dtype, device=device)
-        specs = {"wi": ((E, d, f), "normal", 1.0 / math.sqrt(d))}
+        eax = "experts_ep" if cfg.expert_parallel else "experts"
+        # EP weights drop FSDP on the embed dim (they are already data-sharded
+        # over the expert dim; double-sharding would regather per layer)
+        dax = None if cfg.expert_parallel else "embed"
+        self.router = Linear(d, E, ("embed", None), dtype=dtype, device=device)
+        specs = {"wi": ((E, d, f), (eax, dax, "mlp"), "normal", 1.0 / math.sqrt(d))}
         if cfg.mlp_act.endswith("_glu"):
-            specs["wg"] = ((E, d, f), "normal", 1.0 / math.sqrt(d))
-        specs["wo"] = ((E, f, d), "normal", 1.0 / math.sqrt(f))
+            specs["wg"] = ((E, d, f), (eax, dax, "mlp"), "normal", 1.0 / math.sqrt(d))
+        specs["wo"] = ((E, f, d), (eax, "mlp", dax), "normal", 1.0 / math.sqrt(f))
         raw_params(self, specs, dtype, device)
 
 
@@ -93,11 +100,23 @@ def apply_moe(p: MoE, x: torch.Tensor, cfg) -> torch.Tensor:
     x_pad = torch.cat([x, x.new_zeros((B, 1, d))], dim=1)
     rows = torch.arange(B, device=dev)[:, None]
     xe = x_pad[rows, disp].reshape(B, E, C, d)
+    if cfg.expert_parallel:
+        # EP: reshard tokens expert-major (all-to-all) so the expert GEMMs
+        # run where the weights live; batch dim replicates locally
+        xe = constrain(xe, None, "experts_ep")
+    else:
+        xe = constrain(xe, "batch", "experts")
     h = torch.einsum("becd,edf->becf", xe, p.wi.to(x.dtype))
+    if cfg.expert_parallel:
+        h = constrain(h, None, "experts_ep", None, "mlp")
+    else:
+        h = constrain(h, "batch", "experts", None, "mlp")
     h = _act(h, cfg.mlp_act)
     if cfg.mlp_act.endswith("_glu"):
         h = h * torch.einsum("becd,edf->becf", xe, p.wg.to(x.dtype))
     ye = torch.einsum("becf,efd->becd", h, p.wo.to(x.dtype))
+    if cfg.expert_parallel:
+        ye = constrain(ye, "batch", None)   # all-to-all back to token-major
     ye = ye * wbuf[..., None]
 
     # combine: scatter-add back to token positions (pad row S absorbs the

@@ -17,11 +17,12 @@ bit for bit.  :func:`to_jax_params` is the inverse: it restacks the port's
 layers by group into the reference's keypaths, which is what makes the two
 packages' checkpoints interchangeable; ``to_jax_layout`` /
 ``from_jax_layout`` do the same for any mapping keyed like the model's
-parameters (the optimizer's moments).
+parameters (the optimizer's moments).  :func:`param_axes` gives every
+parameter's logical sharding axes under the same keypaths.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple, Union
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -69,6 +70,46 @@ def _to_numpy(name: str, t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", copy=True).numpy()
 
 
+def _jax_keys(cfg: ModelConfig, names) -> Dict[str, Tuple[str, Optional[int]]]:
+    """Port parameter name -> (reference keypath, repetition on the stacked
+    layer axis, or None for a leaf that is not stacked)."""
+    index = {port: (ref, _layer_index(meta)) for ref, port, meta in _stacks(cfg)}
+    out = {}
+    for name in names:
+        head, _, tail = name.partition(".")
+        if head in index:
+            layer, rest = tail.split(".", 1)
+            ref, layers = index[head]
+            g, r, i = layers[int(layer)]
+            out[name] = (f"{ref}/{g}/pos{i}/{rest.replace('.', '/')}", r)
+        else:
+            out[name] = (name.replace(".", "/"), None)
+    return out
+
+
+def named_param_axes(model: Model) -> Dict[str, Tuple[Optional[str], ...]]:
+    """``{port parameter name: logical axes}``, from each parameter's
+    container (``axes``), as the port's layers hold them: one layer at a
+    time, with no ``"layers"`` axis."""
+    out = {}
+    for name, _ in model.named_parameters():
+        owner, _, attr = name.rpartition(".")
+        out[name] = tuple(model.get_submodule(owner).axes[attr])
+    return out
+
+
+def param_axes(cfg: ModelConfig) -> Dict[str, Tuple[Optional[str], ...]]:
+    """``{reference keypath: logical axes}`` of every parameter, stacked
+    leaves with the leading ``"layers"`` axis: the counterpart of the
+    reference's ``layers.spec_axes(param_specs(cfg))``, flattened by
+    keypath (read from a model on the ``meta`` device)."""
+    axes = named_param_axes(Model(cfg, "meta"))
+    out = {}
+    for name, (key, rep) in _jax_keys(cfg, axes).items():
+        out[key] = axes[name] if rep is None else ("layers",) + axes[name]
+    return out
+
+
 @torch.no_grad()
 def to_jax_layout(cfg: ModelConfig,
                   named: Mapping[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -77,19 +118,13 @@ def to_jax_layout(cfg: ModelConfig,
     (``layers.3.attn.wq.w`` -> ``groups/0/pos0/attn/wq/w[3]``,
     ``enc_layers.1.mlp.wi.w`` -> ``enc_groups/0/pos0/mlp/wi/w[1]``).
     Arrays are copies.  A bfloat16 tensor raises ``NotImplementedError``."""
-    index = {port: (ref, _layer_index(meta)) for ref, port, meta in _stacks(cfg)}
     stacks: Dict[str, Dict[int, torch.Tensor]] = {}
     flat: Dict[str, np.ndarray] = {}
-    for name, t in named.items():
-        head, _, tail = name.partition(".")
-        if head in index:
-            layer, rest = tail.split(".", 1)
-            ref, layers = index[head]
-            g, r, i = layers[int(layer)]
-            key = f"{ref}/{g}/pos{i}/{rest.replace('.', '/')}"
-            stacks.setdefault(key, {})[r] = t
+    for name, (key, rep) in _jax_keys(cfg, named).items():
+        if rep is not None:
+            stacks.setdefault(key, {})[rep] = named[name]
         else:
-            flat[name.replace(".", "/")] = _to_numpy(name, t)
+            flat[key] = _to_numpy(name, named[name])
     for key, reps in stacks.items():
         flat[key] = _to_numpy(key, torch.stack([reps[r] for r in range(len(reps))]))
     return flat

@@ -42,18 +42,21 @@ class RGLRU(nn.Module):
         d, rw = cfg.d_model, cfg.rnn_width or cfg.d_model
         blk = rw // GATE_BLOCKS
         kw = dict(dtype=dtype, device=device)
-        self.wx = Linear(d, rw, **kw)
-        self.wgate = Linear(d, rw, **kw)
+        self.wx = Linear(d, rw, ("embed", "rnn"), **kw)
+        self.wgate = Linear(d, rw, ("embed", "rnn"), **kw)
         raw_params(self, {
-            "conv": ((cfg.conv_width, rw), "normal", 1.0 / math.sqrt(cfg.conv_width)),
-            "conv_b": ((rw,), "zeros", 0.0),
-            "gate_a": ((GATE_BLOCKS, blk, blk), "normal", 1.0 / math.sqrt(blk)),
-            "gate_a_b": ((rw,), "zeros", 0.0),
-            "gate_x": ((GATE_BLOCKS, blk, blk), "normal", 1.0 / math.sqrt(blk)),
-            "gate_x_b": ((rw,), "zeros", 0.0),
-            "lam": ((rw,), "ones", 0.0),   # softplus(lam) > 0
+            "conv": ((cfg.conv_width, rw), (None, "rnn"), "normal",
+                     1.0 / math.sqrt(cfg.conv_width)),
+            "conv_b": ((rw,), ("rnn",), "zeros", 0.0),
+            "gate_a": ((GATE_BLOCKS, blk, blk), (None, "rnn", None), "normal",
+                       1.0 / math.sqrt(blk)),
+            "gate_a_b": ((rw,), ("rnn",), "zeros", 0.0),
+            "gate_x": ((GATE_BLOCKS, blk, blk), (None, "rnn", None), "normal",
+                       1.0 / math.sqrt(blk)),
+            "gate_x_b": ((rw,), ("rnn",), "zeros", 0.0),
+            "lam": ((rw,), ("rnn",), "ones", 0.0),   # softplus(lam) > 0
         }, dtype, device)
-        self.wo = Linear(rw, d, **kw)
+        self.wo = Linear(rw, d, ("rnn", "embed"), **kw)
 
 
 def _block_diag(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

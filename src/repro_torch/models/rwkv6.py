@@ -47,22 +47,23 @@ class TimeMix(nn.Module):
         H = d // dh
         sc = 1.0 / math.sqrt(d)
         raw_params(self, {
-            "mu": ((len(MIXES), d), "normal", 0.5),
-            "mix_lora_a": ((d, len(MIXES) * LORA_DIM), "normal", sc),
-            "mix_lora_b": ((len(MIXES), LORA_DIM, d), "normal", 0.01),
-            "w0": ((d,), "zeros", 0.0),
-            "w_lora_a": ((d, LORA_DIM * 2), "normal", sc),
-            "w_lora_b": ((LORA_DIM * 2, d), "normal", 0.01),
-            "u": ((H, dh), "normal", 0.5),
-            "ln_scale": ((d,), "ones", 0.0),
-            "mu_ck": ((d,), "normal", 0.5),
-            "mu_cr": ((d,), "normal", 0.5),
+            "mu": ((len(MIXES), d), (None, "embed"), "normal", 0.5),
+            "mix_lora_a": ((d, len(MIXES) * LORA_DIM), ("embed", None), "normal", sc),
+            "mix_lora_b": ((len(MIXES), LORA_DIM, d), (None, None, "embed"), "normal", 0.01),
+            "w0": ((d,), ("embed",), "zeros", 0.0),
+            "w_lora_a": ((d, LORA_DIM * 2), ("embed", None), "normal", sc),
+            "w_lora_b": ((LORA_DIM * 2, d), (None, "embed"), "normal", 0.01),
+            "u": ((H, dh), (None, None), "normal", 0.5),
+            "ln_scale": ((d,), ("embed",), "ones", 0.0),
+            "mu_ck": ((d,), ("embed",), "normal", 0.5),
+            "mu_cr": ((d,), ("embed",), "normal", 0.5),
         }, dtype, device)
         kw = dict(dtype=dtype, device=device)
         for name in ("wr", "wk", "wv", "wg", "wo", "cr"):
-            setattr(self, name, Linear(d, d, **kw))
-        self.ck = Linear(d, cfg.d_ff, **kw)
-        self.cv = Linear(cfg.d_ff, d, **kw)
+            axes = ("q_proj", "embed") if name == "wo" else ("embed", "q_proj")
+            setattr(self, name, Linear(d, d, axes, **kw))
+        self.ck = Linear(d, cfg.d_ff, ("embed", "mlp"), **kw)
+        self.cv = Linear(cfg.d_ff, d, ("mlp", "embed"), **kw)
 
 
 def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]) -> torch.Tensor:

@@ -37,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..kernels import ops
+from ..runtime import constrain, scope
 from .config import ModelConfig
 from .layers import (MLP, Attention, Norm, apply_linear, apply_mlp,
                      apply_norm, attention_block, attention_decode,
@@ -370,11 +371,13 @@ def _groups(layers: Sequence[Block], cfg: ModelConfig):
 def run_stack(layers: Sequence[Block], x: torch.Tensor, cfg: ModelConfig,
               positions: torch.Tensor, encoder_out: Optional[torch.Tensor] = None,
               causal: bool = True, remat: bool = True,
-              kernels: Optional[Kernels] = None) -> torch.Tensor:
+              kernels: Optional[Kernels] = None,
+              name: str = "layers") -> torch.Tensor:
     """Forward through all groups without a cache: training, under
     autograd, or, given ``kernels``, the encoder of the serving path (no
     remat: it runs under ``no_grad``).  ``causal`` is False for the
-    encoder; ``encoder_out`` feeds the decoder's cross-attention.
+    encoder; ``encoder_out`` feeds the decoder's cross-attention.  Layer
+    i runs under the cost scope ``<name>.<i>``, its recompute too.
 
     With ``remat`` each repetition of a group's unit is checkpointed (the
     reference's ``nothing_saveable`` scan body: only its input is kept, the
@@ -382,10 +385,14 @@ def run_stack(layers: Sequence[Block], x: torch.Tensor, cfg: ModelConfig,
     the reference's two-level split: checkpointed runs of n_inner
     repetitions over checkpointed repetitions, so the backward keeps
     n / n_inner + n_inner residual-stream carries instead of n."""
+    index = {id(layer): i for i, layer in enumerate(layers)}
+
     def body(h: torch.Tensor, rep: List[Block]) -> torch.Tensor:
         for layer in rep:
-            h, _ = block_forward(layer.kind, layer, h, cfg, positions,
-                                 encoder_out, causal, kernels=kernels)
+            with scope(f"{name}.{index[id(layer)]}"):
+                h, _ = block_forward(layer.kind, layer, h, cfg, positions,
+                                     encoder_out, causal, kernels=kernels)
+                h = constrain(h, "batch")
         return h
 
     def remat_body(h: torch.Tensor, rep: List[Block]) -> torch.Tensor:

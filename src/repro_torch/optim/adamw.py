@@ -20,6 +20,7 @@ from typing import Dict, Mapping, Tuple
 import torch
 
 from ..models.layers import torch_dtype
+from ..runtime import scope
 
 Named = Mapping[str, torch.Tensor]
 
@@ -76,6 +77,7 @@ def global_norm(tree: Named) -> torch.Tensor:
     return torch.sqrt(total)
 
 
+@scope("optimizer")
 @torch.no_grad()
 def update(grads: Named, opt_state: Dict[str, object], params: Named,
            cfg: AdamWConfig) -> Tuple[Named, Dict[str, object], Dict[str, torch.Tensor]]:

@@ -42,7 +42,8 @@ def test_import_loads_no_jax_and_no_reference():
                  "launch.collect", "launch.st_case_study",
                  "launch.npar1way_case_study", "perfdbg.chaos", "perfdbg.corpus",
                  "perfdbg.workloads", "perfdbg.workloads.st",
-                 "perfdbg.workloads.npar1way"):
+                 "perfdbg.workloads.npar1way", "launch.hlo_analysis",
+                 "launch.mesh", "launch.sharding", "runtime"):
         assert f"repro_torch.{name}" in got["modules"]
     for name in ("flash_attention", "rglru_scan", "wkv6"):
         assert f"repro_torch.kernels.{name}" in got["modules"]

@@ -35,7 +35,9 @@ parameter the forward does not reach otherwise makes the gradient raise.
 
 Also here: gradients with remat on and off are equal bit for bit (one
 group per layer, and nine layers, the reference's two-level sqrt split);
-the chunked loss over several chunks; ``mha``'s per-chunk checkpoint;
+the chunked loss over several chunks, and at the default chunk length on
+both sides of one chunk (one chunk is not checkpointed); ``mha``'s
+per-chunk checkpoint;
 ``to_jax_params`` inverts ``from_jax_params`` for all ten architectures;
 ten ``make_train_step``
 steps (microbatches 1 and 2) track the reference's losses to 1e-4.
@@ -214,6 +216,20 @@ def test_chunked_loss_over_several_chunks(monkeypatch):
     loss, grads = _port_grads(model, batch)
     assert loss == pytest.approx(jloss, rel=1e-5)
     assert loss == pytest.approx(one, rel=1e-6)
+    _check_grads(to_jax_layout(cfg, grads), jgrads, *GRAD_TOL["float32"])
+
+
+@pytest.mark.parametrize("seq", [tmodel.LOSS_CHUNK, 2 * tmodel.LOSS_CHUNK])
+def test_loss_on_both_sides_of_one_chunk_matches_reference(seq):
+    """At the default LOSS_CHUNK: one chunk, not checkpointed, at seq
+    LOSS_CHUNK, and two checkpointed chunks at twice that give the
+    reference's loss and gradients."""
+    jcfg = jreduced_config("yi-34b", compute_dtype="float32")
+    cfg = reduced_config("yi-34b", compute_dtype="float32")
+    batch = _batch(cfg.vocab_size, seed=7, s=seq)
+    jparams, jloss, jgrads = _reference(jcfg, batch)
+    loss, grads = _port_grads(from_jax_params(cfg, flatten(jparams), device="cpu"), batch)
+    assert loss == pytest.approx(jloss, rel=1e-5)
     _check_grads(to_jax_layout(cfg, grads), jgrads, *GRAD_TOL["float32"])
 
 

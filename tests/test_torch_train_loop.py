@@ -3,8 +3,9 @@ driver cases of ``tests/test_train_integration.py`` at reduced widths and a
 few steps each: the main smoke with checkpoints, resume at the saved step
 with the data partition restored from the manifest, an injected data
 bottleneck appearing in the window that contains it, the simulated pod's
-rebalance firing, the partitioned pipeline's reshard actuation, the
-refusal of ``--costs hlo`` (not ported yet), the six families of slice 7
+rebalance firing, the partitioned pipeline's reshard actuation, ``--costs
+hlo`` and ``--schema tpu`` printing the counted step's ``[costs]`` line
+(no flag refused for want of a port), the six families of slice 7
 training a few steps, and the refusal, before the first step, to
 checkpoint a run with bf16 parameters (mixtral's).  The analysis side's
 flags run as the reference's: ``--pod-gather`` delivers every window,
@@ -28,7 +29,8 @@ from repro_torch.ckpt import checkpoint as ckpt  # noqa: E402
 from repro_torch.kernels import flash_attention as k1  # noqa: E402
 from repro_torch.kernels import rglru_scan as k2  # noqa: E402
 from repro_torch.kernels import wkv6 as k3  # noqa: E402
-from repro_torch.launch.train import NOT_PORTED, main, run  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
+from repro_torch.launch.train import main, run  # noqa: E402
 from _torch_threads import ONE_THREAD_ENV, one_torch_thread  # noqa: E402,F401  (autouse)
 
 REPO = Path(__file__).resolve().parent.parent
@@ -143,14 +145,25 @@ def test_data_hosts_reshard_actuates(capsys):
     (["--schema", "tpu"], "costs_hlo"),
 ])
 def test_unported_flags_raise(flags, reason, capsys):
-    with pytest.raises(SystemExit) as exc:
-        main([*SMALL, "--steps", "1", *flags])
-    assert exc.value.code == 2
-    assert NOT_PORTED[reason] in capsys.readouterr().err
+    """Formerly refused (ROADMAP section 1.7): both flag sets now run on the
+    step's counted costs, ``--costs hlo`` under either schema."""
+    assert main([*SMALL, "--steps", "2", "--analyze-every", "2", *flags]) == 0
+    out = capsys.readouterr().out
+    m = re.search(r"\[costs\] hlo step: hlo_flops=([\d.e+]+) hbm_bytes=([\d.e+]+) "
+                  r"collective_bytes=0\.000e\+00", out)
+    assert m and float(m.group(1)) > 0 and float(m.group(2)) > 0, reason
+    assert "[costs] coverage: step:" in out
 
 
 def test_only_hlo_costs_stay_unported():
-    assert list(NOT_PORTED) == ["costs_hlo"]
+    """No flag is refused for want of a port any more: the refusal table is
+    gone and the help names no ROADMAP section."""
+    assert not hasattr(train_mod, "NOT_PORTED")
+    ap_help = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--help"],
+        env=dict(os.environ, PYTHONPATH=str(REPO / "src"), **ONE_THREAD_ENV),
+        capture_output=True, text=True, check=True, timeout=300).stdout
+    assert "ROADMAP" not in ap_help and "not ported" not in ap_help
 
 
 def test_pod_gather_delivers_every_window(capsys):
