@@ -155,7 +155,23 @@ script.  Phases, each raising on failure (nothing is caught):
               one ``runtime.constrain`` of a CUDA DTensor inside
               ``sharding_context`` (the resolved placements, the values
               unchanged); a (2, 16, 16) production mesh over a fake world
-              of 512 with one resolved placement's local shape.
+              of 512 with one resolved placement's local shape;
+  I      the multi-pod dry-run and its roofline, which launch no kernel:
+         ``python -m repro_torch.launch.dryrun`` as processes side by side
+         (each a fake process group of 256 or 512, every tensor on the meta
+         device) for yi-34b train_4k on the single- and the two-pod mesh,
+         mixtral-8x7b prefill_32k, qwen1.5-110b decode_32k (FSDP kept by
+         ``serve_rules``), recurrentgemma-9b long_500k (batch 1: the cache's
+         sequence takes ``data``) and the skipped yi-34b long_500k, then
+         ``python -m repro_torch.launch.roofline`` over their records.
+         Every record is ``ok`` or skipped with the registry's reason; the
+         two-pod yi-34b train_4k matmul flops per device are half the
+         single pod's (1 %); the single pod's x 256 equal H.2's unsharded
+         count plus the padded heads' attention products (56 heads padded
+         to 64: 8/56 of H.2's batched products, the attention's; every
+         other product is split 256 ways), within 1 %; the roofline prints
+         one row per counted cell.  Each cell's count time, per-device flops, bytes,
+         collective bytes by kind and three terms are printed.
 
 The last lines are the card's name and power limit, one JSON line of kernel
 records, and the verdict ``{"ok": true, "device": {...}}``.
@@ -224,6 +240,12 @@ C_SMALL_BATCH, C_SMALL_PROMPT = 2, 2048
 H_ARGV = ["--schema", "tpu"]
 H2_BATCH, H2_SEQ, H2_MICROBATCHES = 256, 4096, 4
 H_FLOPS_RTOL = 0.02              # counted matmul flops against the closed form
+# phase I: the dry-run's cells (arch, shape, mesh), each a process of its own
+I_CELLS = (("yi-34b", "train_4k", "single"), ("yi-34b", "train_4k", "multi"),
+           ("mixtral-8x7b", "prefill_32k", "single"), ("qwen1.5-110b", "decode_32k", "single"),
+           ("recurrentgemma-9b", "long_500k", "single"), ("yi-34b", "long_500k", "single"))
+I_RTOL = 0.01                    # two-pod vs single-pod, sharded vs unsharded matmul flops
+I_TIMEOUT = 600                  # seconds for all of phase I's processes
 H_STEP_RTOL = 0.05               # H.1's warm step against D.2's
 TOL = {"bfloat16": dict(rtol=2e-2, atol=2e-2), "float32": dict(rtol=1e-5, atol=1e-5)}
 LOGITS_TOL = dict(rtol=5e-2, atol=1e-1)   # bf16 model, as the JAX package's
@@ -1150,7 +1172,9 @@ def phase_h_train(torch, counters, card, d_run):
     if torch.cuda.memory_allocated() != before:
         raise RuntimeError("the meta count allocated device memory")
     return dict(count_s=count_s, matmul=mm, closed_form=mf + rf, gap=gap, step_ms=med,
-                full_flops=fst.flops, full_bytes=fst.bytes, full_s=full_s)
+                full_flops=fst.flops, full_bytes=fst.bytes, full_s=full_s,
+                full_matmul=full.matmul_total(),
+                full_attention=full.matmul_by_op.get("aten.bmm", 0.0))
 
 
 def phase_h_mesh(torch, card):
@@ -1204,6 +1228,100 @@ def phase_h_mesh(torch, card):
             raise RuntimeError("the production mesh's placement is not the resolved one")
     finally:
         dist.destroy_process_group()
+
+
+def phase_i(card, h_run):
+    """I: the dry-run's cells as processes side by side, the roofline over
+    their records, and the checks of the module docstring."""
+    import os
+    import shutil
+    from repro_torch.configs import SHAPES, cell_status, get_config
+
+    out = SRC.parent / "dryrun_out" / "smoke"
+    shutil.rmtree(out, ignore_errors=True)
+    (out / "dryrun").mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS="1")
+    width = max(1, min(len(I_CELLS), os.cpu_count() or 1))
+    t0 = time.perf_counter()
+    pending, running, logs = list(I_CELLS), [], []
+    try:
+        while pending or running:
+            while pending and len(running) < width:
+                cell = pending.pop(0)
+                logs.append(open(out / ("__".join(cell) + ".log"), "w"))
+                running.append((cell, subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", cell[0],
+                     "--shape", cell[1], "--mesh", cell[2], "--out", str(out / "dryrun")],
+                    env=env, cwd=SRC.parent, stdout=logs[-1], stderr=subprocess.STDOUT)))
+            if time.perf_counter() - t0 > I_TIMEOUT:
+                raise RuntimeError(f"phase I's dry-runs took over {I_TIMEOUT} s: "
+                                   f"{[c for c, _ in running] + pending} unfinished")
+            time.sleep(0.5)
+            for item in [r for r in running if r[1].poll() is not None]:
+                running.remove(item)
+                if item[1].returncode:
+                    log = (out / ("__".join(item[0]) + ".log")).read_text()
+                    raise RuntimeError(f"dry-run {item[0]} exited {item[1].returncode}: "
+                                       f"{log[-2000:]}")
+    finally:
+        for _, proc in running:
+            proc.kill()
+            proc.wait()
+        for log in logs:
+            log.close()
+    wall = time.perf_counter() - t0
+    recs = {cell: json.loads((out / "dryrun" / f"{'__'.join(cell)}.json").read_text())
+            for cell in I_CELLS}
+    for (arch, shape, mesh), rec in recs.items():
+        reason = cell_status(get_config(arch), SHAPES[shape])
+        if rec.get("skipped") != reason or not rec.get("ok"):
+            raise RuntimeError(f"dry-run {arch} {shape} {mesh}: ok={rec.get('ok')}, skipped="
+                               f"{rec.get('skipped')!r} (registry: {reason!r}), error="
+                               f"{rec.get('error')}")
+    roof = subprocess.run([sys.executable, "-m", "repro_torch.launch.roofline", "--dir",
+                           str(out / "dryrun"), "--out", str(out / "roofline.json")],
+                          env=env, cwd=SRC.parent, capture_output=True, text=True,
+                          check=True, timeout=120)
+    print(roof.stdout.strip())
+    rows = {(r["arch"], r["shape"], r["mesh"]): r
+            for r in json.loads((out / "roofline.json").read_text()) if not r.get("skipped")}
+    counted = [cell for cell, rec in recs.items() if not rec.get("skipped")]
+    printed = [line for line in roof.stdout.splitlines()
+               if line.startswith("| ") and not line.startswith("| arch")]
+    if sorted(rows) != sorted(counted) or len(printed) != len(counted):
+        raise RuntimeError(f"the roofline has rows {sorted(rows)} and prints {len(printed)}; "
+                           f"the counted cells are {sorted(counted)}")
+    for cell in I_CELLS:
+        rec = recs[cell]
+        if rec.get("skipped"):
+            print(f"[I] {' '.join(cell)}: skipped, {rec['skipped']}")
+            continue
+        r, c = rows[cell], rec["cost"]
+        coll = ", ".join(f"{k} {v:.4e}" for k, v in rec["collectives"]["bytes"].items() if v)
+        print(f"[I] {' '.join(cell)} (mesh {rec['mesh_shape']}): counted in {rec['count_s']} s "
+              f"(host clock, meta device); per device: flops {c['flops']:.4e} (matmul "
+              f"{c['matmul flops']:.4e}), HBM bytes {c['bytes accessed']:.4e}, collective "
+              f"bytes {coll}, argument bytes {rec['memory']['argument_size_in_bytes']:.4e}; "
+              f"terms: compute {r['compute_s']:.4f} s, memory {r['memory_s']:.4f} s, "
+              f"collective {r['collective_s']:.4f} s: {r['dominant']} | card: {card}")
+    single = recs[("yi-34b", "train_4k", "single")]["cost"]["matmul flops"]
+    multi = recs[("yi-34b", "train_4k", "multi")]["cost"]["matmul flops"]
+    cfg = get_config("yi-34b")
+    # the padded heads add their share of the attention products (the
+    # unsharded step's batched products; every other product is 2-d)
+    pad = h_run["full_attention"] * (cfg.pad_heads - cfg.n_heads) / cfg.n_heads
+    want = h_run["full_matmul"] + pad
+    print(f"[I] yi-34b train_4k matmul flops per device: two pods {multi:.4e} / one pod "
+          f"{single:.4e} = {multi / single:.4f} (want 0.5 within {100 * I_RTOL:.0f} %); one "
+          f"pod x 256 = {256 * single:.4e} against H.2's unsharded {h_run['full_matmul']:.4e} "
+          f"+ padded heads {pad:.4e} = {want:.4e}: {256 * single / want:.4f}; phase I's "
+          f"processes ran {wall:.1f} s, {width} at a time")
+    if abs(multi / single - 0.5) > 0.5 * I_RTOL:
+        raise RuntimeError(f"two pods' matmul flops per device are {multi / single:.4f} of one's")
+    if abs(256 * single / want - 1) > I_RTOL:
+        raise RuntimeError(f"one pod's matmul flops x 256 are {256 * single / want:.4f} of "
+                           "the unsharded count plus the padded heads")
+    return dict(wall=wall, recs=recs, rows=rows)
 
 
 def main() -> int:
@@ -1497,12 +1615,23 @@ def main() -> int:
     free()
     for fn in counters.values():
         fn.launches = 0
-    phase_h_train(torch, counters, card, d_run)
+    h_run = phase_h_train(torch, counters, card, d_run)
     phase_h_mesh(torch, card)
     h_launches = {name: fn.launches for name, fn in counters.items()}
     if any(h_launches.values()):
         raise RuntimeError(f"phase H launched kernels: {h_launches}")
     print(f"[H] passed, kernel launches {h_launches}; smoke ran "
+          f"{time.perf_counter() - t_start:.1f} s after the card check")
+
+    # -- I: the multi-pod dry-run and the roofline (no kernel) ---------------------------
+    free()
+    for fn in counters.values():
+        fn.launches = 0
+    phase_i(card, h_run)
+    i_launches = {name: fn.launches for name, fn in counters.items()}
+    if any(i_launches.values()):
+        raise RuntimeError(f"phase I launched kernels: {i_launches}")
+    print(f"[I] passed, kernel launches {i_launches}; smoke ran "
           f"{time.perf_counter() - t_start:.1f} s after the card check")
 
     def launches(name):

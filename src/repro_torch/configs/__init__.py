@@ -1,11 +1,19 @@
-"""Architecture registry of the port: all ten architectures of the JAX
-package.  Mirrors ``get_config`` / ``reduced_config`` of its registry.
+"""Architecture + shape registry of the port: all ten architectures of the
+JAX package and its four input shapes (10 archs x 4 shapes).  Mirrors its
+registry: ``Shape``, ``SHAPES``, ``TRAIN_MICROBATCHES``, ``cell_status`` and
+``all_cells`` keep the reference's text, ``get_config`` /
+``reduced_config`` its behaviour.
+
+Each cell pairs an architecture with an input shape; ``mode`` selects which
+step gets counted (train_step / prefill / serve_step, ``launch.dryrun``).
+``long_500k`` runs only for sub-quadratic-capable archs; skipped cells
+carry an explanatory reason and still appear in reports.
 """
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Tuple
+from typing import Dict, Optional, Tuple
 
 from repro_torch.models.config import ModelConfig
 
@@ -23,6 +31,37 @@ ARCH_MODULES = {
 }
 
 
+@dataclasses.dataclass(frozen=True)
+class Shape:
+    name: str
+    seq_len: int
+    global_batch: int
+    mode: str  # train | prefill | decode
+
+
+SHAPES: Dict[str, Shape] = {
+    "train_4k": Shape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": Shape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": Shape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": Shape("long_500k", 524_288, 1, "decode"),
+}
+
+# gradient-accumulation microbatches per (arch, shape) — memory-fit knobs;
+# everything absent defaults to 1.
+TRAIN_MICROBATCHES: Dict[Tuple[str, str], int] = {
+    ("qwen1.5-110b", "train_4k"): 4,
+    ("yi-34b", "train_4k"): 4,
+    ("gemma2-27b", "train_4k"): 2,
+    ("nemotron-4-15b", "train_4k"): 2,
+    ("whisper-large-v3", "train_4k"): 2,
+    ("mixtral-8x7b", "train_4k"): 2,
+    ("moonshot-v1-16b-a3b", "train_4k"): 2,
+    ("pixtral-12b", "train_4k"): 2,
+    ("rwkv6-3b", "train_4k"): 2,
+    ("recurrentgemma-9b", "train_4k"): 2,
+}
+
+
 def get_config(name: str) -> ModelConfig:
     if name not in ARCH_MODULES:
         raise KeyError(f"unknown architecture {name!r}; "
@@ -33,6 +72,26 @@ def get_config(name: str) -> ModelConfig:
 
 def list_archs() -> Tuple[str, ...]:
     return tuple(ARCH_MODULES)
+
+
+def cell_status(cfg: ModelConfig, shape: Shape) -> Optional[str]:
+    """None if the (arch, shape) cell runs; else a skip reason."""
+    if shape.name == "long_500k":
+        if cfg.is_encdec:
+            return ("skip: enc-dec audio backbone; context is 1500 frames "
+                    "by construction (DESIGN.md §Arch-applicability)")
+        if not cfg.supports_long_context:
+            return ("skip: pure full-attention arch; long_500k requires "
+                    "sub-quadratic attention (DESIGN.md §Arch-applicability)")
+    return None
+
+
+def all_cells():
+    """Yield (arch_name, shape, skip_reason_or_None)."""
+    for arch in ARCH_MODULES:
+        cfg = get_config(arch)
+        for shape in SHAPES.values():
+            yield arch, shape, cell_status(cfg, shape)
 
 
 def reduced_config(name: str, **overrides) -> ModelConfig:

@@ -9,7 +9,8 @@ CONFIG = ModelConfig(
     d_ff=5120, vocab_size=51_866,
     block_pattern=("global",),
     mlp_act="gelu", norm="layernorm", use_rope=False,
-    pad_heads=32,   # the reference's mesh padding; the port ignores it
+    pad_heads=32,   # the reference's mesh padding; applied inside a
+                    # sharding context only (the dry-run), as yi-34b's
     encoder_layers=32, encoder_seq=1500,
     frontend="audio_stub", source="arXiv:2212.04356",
 )

@@ -7,6 +7,8 @@ CONFIG = ModelConfig(
     d_ff=20480, vocab_size=64_000,
     block_pattern=("global",),
     mlp_act="silu_glu", rope_theta=5e6, source="arXiv:2403.04652",
-    pad_heads=64,   # kept for config parity with the JAX package; the port's
-                    # attention never pads heads (zero heads change no output)
+    pad_heads=64,   # 56 heads don't divide the 16-way model axis: inside a
+                    # sharding context (the dry-run) attention pads them to
+                    # 64 as the reference's does; outside one it never pads
+                    # (zero heads change no output)
 )

@@ -37,8 +37,10 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0, softcap: float = 0.0,
-              scale: Optional[float] = None) -> torch.Tensor:
-    """GQA flash attention.  q: (B, Sq, H, dh); k, v: (B, Sk, K, dh)."""
+              scale: Optional[float] = None, pad_heads: int = 0) -> torch.Tensor:
+    """GQA flash attention.  q: (B, Sq, H, dh); k, v: (B, Sk, K, dh).
+    ``pad_heads`` is taken for the signature of ``models.layers.mha`` and
+    not used: padded heads are zeros that are sliced off the output."""
     if q.device.type == "cuda":
         return flash_attention(q, k, v, causal=causal, window=window,
                                softcap=softcap, scale=scale)

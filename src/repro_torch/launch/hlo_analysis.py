@@ -135,14 +135,16 @@ def _numel(x) -> float:
 
 class Analyzer:
     """Costs of one call of ``fn(*args)``, which runs once, here, under the
-    counting mode; the entry is named ``fn.__name__``."""
+    counting mode; the entry is named ``fn.__name__`` and its return value
+    is kept as ``result``."""
 
     def __init__(self, fn: Callable, *args):
         self.entry = fn.__name__
         self.matmul_flops: Dict[str, float] = {}   # scope -> matmul-family flops
+        self.matmul_by_op: Dict[str, float] = {}   # op (aten.mm, aten.bmm, ...) -> flops
         self._scopes: Dict[str, Stats] = {}
         with _Tagging(), _Counting(self):
-            fn(*args)
+            self.result = fn(*args)
         self._total = Stats()
         for st in self._scopes.values():
             self._total.add(st)
@@ -177,6 +179,7 @@ class Analyzer:
             f = float(flop_registry[func.overloadpacket](*args, **kwargs, out_val=out))
             st.flops += f
             self.matmul_flops[scope] = self.matmul_flops.get(scope, 0.0) + f
+            self.matmul_by_op[name] = self.matmul_by_op.get(name, 0.0) + f
         else:
             st.flops += _numel(out)
         if not (func.is_view or name in _NO_BYTES):

@@ -94,8 +94,10 @@ def resolve_spec(shape: Sequence[int], axes: Sequence[Optional[str]],
 def spec_placements(spec: Spec, mesh) -> Tuple[Any, ...]:
     """DTensor placements of ``spec`` on the ``DeviceMesh`` ``mesh``: per
     mesh dimension, ``Shard(d)`` where tensor dimension d names it, else
-    ``Replicate()``.  A dimension split over several mesh axes must name
-    them in mesh order (major first)."""
+    ``Replicate()``; a mesh dimension of size 1 splits nothing and is
+    ``Replicate()`` (a DTensor would refuse reshapes of a "split" dimension
+    there).  A dimension split over several mesh axes must name them in
+    mesh order (major first)."""
     from torch.distributed.tensor import Replicate, Shard
     names = list(mesh.mesh_dim_names)
     out = [Replicate() for _ in names]
@@ -107,7 +109,8 @@ def spec_placements(spec: Spec, mesh) -> Tuple[Any, ...]:
             raise ValueError(f"dimension {d} splits over {part}, which is "
                              f"not in the mesh's order {tuple(names)}")
         for m in dims:
-            out[m] = Shard(d)
+            if mesh.shape[m] > 1:
+                out[m] = Shard(d)
     return tuple(out)
 
 

@@ -13,9 +13,14 @@ dtype, the embedding scaled in the compute dtype, fp32 logits.
 
 ``mha`` is the plain attention (the CPU path, the oracle of the attention
 kernel, and what training runs under autograd, as the reference trains
-with its jnp ``mha``); it never pads heads, which the reference does only
-to make the head count divide a TPU mesh axis — zero heads change no
-output.  ``attention_block`` is the attention of a block without a cache:
+with its jnp ``mha``); it pads heads to ``cfg.pad_heads`` only inside a
+sharding context (``runtime.active()``), as the reference pads them so
+that the head count divides the mesh's model axis — zero heads change no
+output, so outside a context it computes the real heads alone.  Heads are
+split out of a projection and merged back into one by ``split_heads`` and
+``merge_heads`` (``runtime.unflatten`` / ``flatten``: a reshape, which
+inside a context also places the heads by their logical axes).
+``attention_block`` is the attention of a block without a cache:
 projections, rope, the attention function it is given (``mha`` unless a
 kernel's entry point is passed), out-projection; with ``encoder_out`` it is
 the decoder's cross-attention, whose K and V come from the encoder.
@@ -30,7 +35,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..runtime import constrain
+from ..runtime import (active, constrain, flatten, gathered, on_shards,
+                       placements, tp_lookup, tp_matmul, unflatten)
+from ..runtime import pad as pad_zeros
 
 NEG_INF = -1e30
 
@@ -73,6 +80,14 @@ def raw_params(module: nn.Module,
         setattr(module, name, _param(shape, dtype, device))
         module.init_rules[name] = (init, scale)
         module.axes[name] = axes
+
+
+def param(module: nn.Module, name: str) -> torch.Tensor:
+    """Parameter ``name`` of a container as a product uses it
+    (``runtime.gathered`` by its logical axes): the parameter itself
+    outside a sharding context."""
+    t = getattr(module, name)
+    return gathered(t, *module.axes[name]) if active() else t
 
 
 class Linear(nn.Module):
@@ -132,22 +147,24 @@ class MLP(nn.Module):
 
 def apply_norm(p: Norm, x: torch.Tensor, kind: str,
                eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
+    # a norm reduces over the features: whole on each device's rows
+    xf = constrain(x, "batch").float()
+    scale = param(p, "scale").float()
     if kind == "rmsnorm":
         var = torch.mean(xf * xf, dim=-1, keepdim=True)
-        y = xf * torch.rsqrt(var + eps) * (1.0 + p.scale.float())
+        y = xf * torch.rsqrt(var + eps) * (1.0 + scale)
     else:
         mu = torch.mean(xf, dim=-1, keepdim=True)
         var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
-        y = (xf - mu) * torch.rsqrt(var + eps) * (1.0 + p.scale.float()) \
-            + p.bias.float()
+        y = (xf - mu) * torch.rsqrt(var + eps) * (1.0 + scale) \
+            + param(p, "bias").float()
     return y.to(x.dtype)
 
 
 def apply_linear(p: Linear, x: torch.Tensor) -> torch.Tensor:
-    y = torch.matmul(x, p.w.to(x.dtype))
+    y = tp_matmul(x, param(p, "w").to(x.dtype))
     if p.b is not None:
-        y = y + p.b.to(x.dtype)
+        y = y + param(p, "b").to(x.dtype)
     return y
 
 
@@ -182,6 +199,18 @@ def sinusoidal(seq: int, d: int, offset: int = 0, device=None) -> torch.Tensor:
 # Attention (plain; the kernel path is kernels.ops.attention)
 # ---------------------------------------------------------------------------
 
+def split_heads(x: torch.Tensor, n: int, dh: int) -> torch.Tensor:
+    """(B, S, n * dh) -> (B, S, n, dh); inside a sharding context the
+    heads take the ``model`` axis, or ``head_dim`` does where ``n`` does
+    not divide it (``DEFAULT_RULES``' fallback)."""
+    return unflatten(x, 2, (n, dh), "batch", None, "heads", "head_dim")
+
+
+def merge_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, n, dh) -> (B, S, n * dh)."""
+    return flatten(x, 2, 3)
+
+
 def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return cap * torch.tanh(x / cap) if cap else x
 
@@ -195,12 +224,13 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q: (B, Sq, H, dh); k, v: (B, Sk, K, dh) with H % K == 0.  ``q_offset``:
     absolute position of q[0]; ``k_len``: valid KV length; ``window`` > 0
-    restricts attention to the last ``window`` positions.  ``pad_heads`` is
-    accepted for the reference's signature and ignored: its padded heads
-    are zeros sliced off before the out-projection, so the result is the
-    same without them.  ``constrain`` pins q, k, v, the scores and each
-    q-chunk (the reference's stacked chunks ``qs``) where the reference
-    does.  Under autograd each q-chunk is checkpointed, as the
+    restricts attention to the last ``window`` positions.  Inside a
+    sharding context the heads are zero-padded to ``pad_heads`` after the
+    KV heads are expanded and sliced off the output, as the reference
+    does; outside one ``pad_heads`` is ignored (the padded heads' outputs
+    are zeros that are sliced off).  ``constrain`` pins q, k, v, the
+    scores and each q-chunk (the reference's stacked chunks ``qs``) where
+    the reference does.  Under autograd each q-chunk is checkpointed, as the
     reference's are, so only one chunk's fp32 scores live in the backward."""
     B, Sq, H, dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
@@ -210,6 +240,12 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if G > 1:
         k = k.repeat_interleave(G, dim=2)
         v = v.repeat_interleave(G, dim=2)
+    H_real = H
+    if active() and pad_heads > H:
+        # padded on each device's batch rows, every head there
+        pad = (0, 0, 0, pad_heads - H)
+        q, k, v = (pad_zeros(constrain(t, "batch"), pad) for t in (q, k, v))
+        H = pad_heads
     q = constrain(q, "batch", None, "heads")
     k = constrain(k, "batch", None, "heads")
     v = constrain(v, "batch", None, "heads")
@@ -218,7 +254,7 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     def block(qc: torch.Tensor, q_pos: torch.Tensor, kf: torch.Tensor,
               v: torch.Tensor) -> torch.Tensor:
-        s = torch.einsum("bqhd,bshd->bhqs", qc.float(), kf)
+        s = torch.matmul(qc.float().transpose(1, 2), kf.permute(0, 2, 3, 1))
         s = constrain(s, "batch", "heads")
         s = _softcap(s, softcap)
         mask = torch.ones((qc.shape[1], Sk), dtype=torch.bool, device=q.device)
@@ -230,8 +266,10 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             mask &= k_pos[None, :] < k_len
         s = torch.where(mask[None, None], s, torch.full_like(s, NEG_INF))
         p = torch.softmax(s, dim=-1)
-        return torch.einsum("bhqs,bshd->bqhd", p.to(v.dtype), v)
+        return torch.matmul(p.to(v.dtype), v.transpose(1, 2)).transpose(1, 2)
 
+    # per batch row and head: on the local shards inside a context
+    block = on_shards(block, placements(q))
     if Sq > q_chunk and torch.is_grad_enabled():
         def chunk_fn(*args):
             return checkpoint(block, *args, use_reentrant=False)
@@ -241,7 +279,8 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      q_offset + torch.arange(c, min(c + q_chunk, Sq),
                                              device=q.device), kf, v)
             for c in range(0, Sq, q_chunk)]
-    return outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    return out if H == H_real else out[:, :, :H_real]
 
 
 def attention_block(p: Attention, x: torch.Tensor, cfg, *,
@@ -256,21 +295,21 @@ def attention_block(p: Attention, x: torch.Tensor, cfg, *,
     rope and no causal mask: the decoder's cross-attention.  ``attention``
     takes q (B, S, H, dh) and k, v (B, Sk, K, dh), each contiguous as the
     kernel's wrapper demands: ``mha`` (training) or ``ops.attention`` (a
-    serving forward).  With ``return_kv`` also returns k and v, which a
-    prefill keeps as the cross cache."""
-    B, S, _ = x.shape
+    serving forward), each also given ``cfg.pad_heads``.  With
+    ``return_kv`` also returns k and v, which a prefill keeps as the cross
+    cache."""
     H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
     kv_src = x if encoder_out is None else encoder_out
-    q = apply_linear(p.wq, x).reshape(B, S, H, dh)
-    k = apply_linear(p.wk, kv_src).reshape(B, kv_src.shape[1], K, dh)
-    v = apply_linear(p.wv, kv_src).reshape(B, kv_src.shape[1], K, dh)
+    q = split_heads(apply_linear(p.wq, x), H, dh)
+    k = split_heads(apply_linear(p.wk, kv_src), K, dh)
+    v = split_heads(apply_linear(p.wv, kv_src), K, dh)
     if cfg.use_rope and encoder_out is None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     out = attention(q, k, v, causal=causal and encoder_out is None,
                     window=window, softcap=cfg.attn_softcap,
-                    scale=cfg.query_scale)
-    y = apply_linear(p.wo, out.reshape(B, S, H * dh))
+                    scale=cfg.query_scale, pad_heads=cfg.pad_heads)
+    y = apply_linear(p.wo, merge_heads(out))
     return (y, k, v) if return_kv else y
 
 
@@ -284,19 +323,47 @@ def mha_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """Single-token grouped attention WITHOUT expanding KV heads.
 
     q: (B, 1, H, dh); k, v: (B, S_buf, K, dh); keys at positions >= k_len
-    are masked."""
+    are masked.  The G query heads of a KV head are the rows of one
+    product with its keys (batched over B and K)."""
     B, _, H, dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
     G = H // K
     scale = (1.0 / math.sqrt(dh)) if scale is None else scale
-    qg = (q * _scalar(scale, q)).reshape(B, 1, K, G, dh)
-    s = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
-    s = _softcap(s, softcap)
-    valid = torch.arange(Sk, device=q.device)[None, None, None, None, :] < k_len
-    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return out.reshape(B, 1, H, dh).to(q.dtype)
+    qg = unflatten(q * _scalar(scale, q), 2, (K, G),
+                   "batch", None, "kv_heads", None, "head_dim")[:, 0]
+
+    def core(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+        s = torch.matmul(qg.float(), k.float().permute(0, 2, 3, 1))  # (B, K, G, Sk)
+        s = _softcap(s, softcap)
+        valid = torch.arange(Sk, device=q.device) < k_len
+        s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+        p = torch.softmax(s, dim=-1)
+        return torch.matmul(p, v.float().transpose(1, 2))            # (B, K, G, dh)
+
+    # per batch row and KV head on the local shards, where the cache is
+    # split by those alone (not by keys or head_dim, whose products need
+    # their partial sums reduced)
+    pl = placements(qg)
+    if pl is not None and not (placements(k) == placements(v) == _cache_like(pl)):
+        pl = None
+    out = on_shards(core, pl)(qg, k, v)
+    return flatten(out, 1, 2)[:, None].to(q.dtype)
+
+
+def _cache_like(qg_placements):
+    """The placements of a (B, S, K, dh) cache that split it as (B, K, G,
+    dh) grouped queries with ``qg_placements`` are split, where those
+    shard batch rows or KV heads only; None otherwise."""
+    from torch.distributed.tensor import Replicate, Shard
+    out = []
+    for p in qg_placements:
+        if isinstance(p, Shard) and p.dim in (0, 1):
+            out.append(Shard(0 if p.dim == 0 else 2))
+        elif isinstance(p, Replicate):
+            out.append(p)
+        else:
+            return None
+    return tuple(out)
 
 
 def attention_decode(p: Attention, x: torch.Tensor,
@@ -312,9 +379,9 @@ def attention_decode(p: Attention, x: torch.Tensor,
     if S != 1:
         raise ValueError(f"decode takes one token per request, got {S}")
     H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = apply_linear(p.wq, x).reshape(B, 1, H, dh)
-    k_new = apply_linear(p.wk, x).reshape(B, 1, K, dh)
-    v_new = apply_linear(p.wv, x).reshape(B, 1, K, dh)
+    q = split_heads(apply_linear(p.wq, x), H, dh)
+    k_new = split_heads(apply_linear(p.wk, x), K, dh)
+    v_new = split_heads(apply_linear(p.wv, x), K, dh)
     if cfg.use_rope:
         positions = torch.full((B, 1), float(pos), device=x.device)
         q = rope(q, positions, cfg.rope_theta)
@@ -327,7 +394,7 @@ def attention_decode(p: Attention, x: torch.Tensor,
     k_len = min(pos + 1, s_buf) if window else pos + 1
     out = mha_decode(q, kc, vc, k_len=k_len, softcap=cfg.attn_softcap,
                      scale=cfg.query_scale)
-    y = apply_linear(p.wo, out.reshape(B, 1, H * dh))
+    y = apply_linear(p.wo, merge_heads(out))
     return y, cache
 
 
@@ -335,12 +402,10 @@ def cross_attention_decode(p: Attention, x: torch.Tensor,
                            cache: Dict[str, torch.Tensor], cfg) -> torch.Tensor:
     """One token's cross-attention against the prefill's cross cache
     {"cross_k", "cross_v"}: (B, Se, K, dh), all ``Se`` keys valid."""
-    B = x.shape[0]
-    H, dh = cfg.n_heads, cfg.d_head
-    q = apply_linear(p.wq, x).reshape(B, 1, H, dh)
+    q = split_heads(apply_linear(p.wq, x), cfg.n_heads, cfg.d_head)
     k, v = cache["cross_k"], cache["cross_v"]
     out = mha_decode(q, k, v, k_len=k.shape[1], scale=cfg.query_scale)
-    return apply_linear(p.wo, out.reshape(B, 1, H * dh))
+    return apply_linear(p.wo, merge_heads(out))
 
 
 # ---------------------------------------------------------------------------
@@ -379,16 +444,16 @@ def apply_mlp(p: MLP, x: torch.Tensor, cfg) -> torch.Tensor:
 
 
 def apply_embed(p: Embed, tokens: torch.Tensor, cfg) -> torch.Tensor:
-    x = p.table[tokens].to(torch_dtype(cfg.compute_dtype))
+    x = tp_lookup(param(p, "table"), tokens).to(torch_dtype(cfg.compute_dtype))
     return x * _scalar(math.sqrt(cfg.d_model), x)
 
 
 def apply_logits(p: Optional[Linear], embed_p: Embed, x: torch.Tensor,
                  cfg) -> torch.Tensor:
     if cfg.tie_embeddings:
-        w = embed_p.table.to(x.dtype).T
+        w = param(embed_p, "table").to(x.dtype).T
     else:
-        w = p.w.to(x.dtype)
-    logits = torch.matmul(x, w)
+        w = param(p, "w").to(x.dtype)
+    logits = tp_matmul(x, w)
     return _softcap(logits.float(), cfg.logit_softcap)
 

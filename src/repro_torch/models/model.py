@@ -28,8 +28,8 @@ from ..runtime import constrain, scope
 from .config import ModelConfig
 from .layers import (Embed, Linear, Norm, apply_embed, apply_linear,
                      apply_logits, apply_norm, sinusoidal, torch_dtype)
-from .transformer import (KERNELS, Block, Cache, Kernels, run_stack,
-                          run_stack_decode, run_stack_prefill)
+from .transformer import (KERNELS, Block, Cache, Kernels, init_cache,
+                          run_stack, run_stack_decode, run_stack_prefill)
 
 LOSS_CHUNK = 512  # sequence-chunked cross-entropy (bounds logits memory)
 
@@ -101,6 +101,35 @@ class Model(nn.Module):
         x, cache = run_stack_decode(self.layers, cache, x, cfg, pos, kernels)
         x = apply_norm(self.final_norm, x, cfg.norm)
         return apply_logits(self.logits, self.embed, x, cfg), cache
+
+
+def input_specs(cfg: ModelConfig, batch: int, seq: int,
+                mode: str = "train") -> Dict[str, object]:
+    """Stand-ins for every model input on the ``meta`` device (no
+    allocation), of the reference's shapes and dtypes: int32 tokens (and
+    labels in training), the vision stub's patches and an
+    encoder-decoder's frames in the compute dtype; in decode one token per
+    request, an int32 position and the decode cache for ``seq`` positions
+    in the port's layout (one dict per layer, ``transformer.init_cache``)."""
+    i32, meta = torch.int32, "meta"
+    cdt = torch_dtype(cfg.compute_dtype)
+    if mode in ("train", "prefill"):
+        out: Dict[str, object] = {"tokens": torch.empty((batch, seq), dtype=i32,
+                                                        device=meta)}
+        if mode == "train":
+            out["labels"] = torch.empty((batch, seq), dtype=i32, device=meta)
+        if cfg.frontend == "vision_stub":
+            out["patches"] = torch.empty((batch, cfg.n_patches, cfg.d_model),
+                                         dtype=cdt, device=meta)
+        if cfg.is_encdec:
+            out["frames"] = torch.empty((batch, cfg.encoder_seq, cfg.d_model),
+                                        dtype=cdt, device=meta)
+        return out
+    if mode == "decode":
+        return {"tokens": torch.empty((batch, 1), dtype=i32, device=meta),
+                "pos": torch.empty((), dtype=i32, device=meta),
+                "cache": init_cache(cfg, batch, seq, meta)}
+    raise ValueError(mode)
 
 
 @scope("embed")
@@ -179,8 +208,10 @@ def chunked_loss(model: Model, hidden: torch.Tensor,
         logits = apply_logits(model.logits, model.embed, h, cfg)
         logits = constrain(logits, "batch", None, "vocab")
         lse = torch.logsumexp(logits, dim=-1)
-        gold = torch.gather(logits, -1, lab[..., None].long())[..., 0]
-        return torch.sum(lse - gold)
+        # (B, c, 1) as gathered: a DTensor's gather from vocab shards is a
+        # masked partial sum, which it cannot reduce after a select
+        gold = torch.gather(logits, -1, lab[..., None].long())
+        return torch.sum(lse[..., None] - gold)
 
     hs = [constrain(hidden[:, i * c:(i + 1) * c], "batch") for i in range(n)]
     ls = [constrain(labels[:, i * c:(i + 1) * c], "batch") for i in range(n)]

@@ -20,8 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..runtime import constrain
-from .layers import Linear, _act, apply_linear, raw_params
+from ..runtime import constrain, on_shards, placements
+from .layers import Linear, _act, apply_linear, param, raw_params
 
 
 class MoE(nn.Module):
@@ -83,44 +83,59 @@ def apply_moe(p: MoE, x: torch.Tensor, cfg) -> torch.Tensor:
     B, S, d = x.shape
     E, k = cfg.n_experts, cfg.top_k
     C = capacity(cfg, S)
+    # dispatch and combine are per batch row: inside a sharding context
+    # they run on each device's rows (``runtime.on_shards``), the expert
+    # products between them on DTensors
+    x = constrain(x, "batch")
     topw, topi = route(p, x, cfg)
-    slot, keep = dispatch(topi, C, E)
-    dev = x.device
-    b_ix = torch.arange(B, device=dev)[:, None].expand(B, S * k)
-    e_ix = topi.reshape(B, S * k)
-    c_ix = torch.where(keep, slot, torch.full_like(slot, C))
-    token_of = torch.arange(S, device=dev).repeat_interleave(k).expand(B, S * k)
-    disp = torch.full((B, E, C + 1), S, dtype=torch.long, device=dev)
-    disp[b_ix, e_ix, c_ix] = token_of
-    disp = disp[..., :C].reshape(B, E * C)
-    wbuf = x.new_zeros((B, E, C + 1))
-    wbuf[b_ix, e_ix, c_ix] = topw.reshape(B, S * k)
-    wbuf = wbuf[..., :C]
+    topw, topi = constrain(topw, "batch"), constrain(topi, "batch")
+    rows = placements(x)
 
-    x_pad = torch.cat([x, x.new_zeros((B, 1, d))], dim=1)
-    rows = torch.arange(B, device=dev)[:, None]
-    xe = x_pad[rows, disp].reshape(B, E, C, d)
+    def gather(x: torch.Tensor, topw: torch.Tensor, topi: torch.Tensor):
+        B = x.shape[0]
+        slot, keep = dispatch(topi, C, E)
+        dev = x.device
+        b_ix = torch.arange(B, device=dev)[:, None].expand(B, S * k)
+        e_ix = topi.reshape(B, S * k)
+        c_ix = torch.where(keep, slot, torch.full_like(slot, C))
+        token_of = torch.arange(S, device=dev).repeat_interleave(k).expand(B, S * k)
+        disp = torch.full((B, E, C + 1), S, dtype=torch.long, device=dev)
+        disp[b_ix, e_ix, c_ix] = token_of
+        disp = disp[..., :C].reshape(B, E * C)
+        wbuf = x.new_zeros((B, E, C + 1))
+        wbuf[b_ix, e_ix, c_ix] = topw.reshape(B, S * k)
+        wbuf = wbuf[..., :C]
+        x_pad = torch.cat([x, x.new_zeros((B, 1, d))], dim=1)
+        xe = x_pad[torch.arange(B, device=dev)[:, None], disp].reshape(B, E, C, d)
+        return xe, wbuf, disp
+
+    def combine(ye: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
+        # scatter-add back to token positions (pad row S absorbs the empty
+        # slots)
+        B = ye.shape[0]
+        flat_ix = (torch.arange(B, device=ye.device)[:, None] * (S + 1)
+                   + disp).reshape(B * E * C)
+        out = ye.new_zeros((B * (S + 1), d)).index_add(0, flat_ix,
+                                                      ye.reshape(B * E * C, d))
+        return out.reshape(B, S + 1, d)[:, :S]
+
+    xe, wbuf, disp = on_shards(gather, rows, rows, rows)(x, topw, topi)
     if cfg.expert_parallel:
         # EP: reshard tokens expert-major (all-to-all) so the expert GEMMs
         # run where the weights live; batch dim replicates locally
         xe = constrain(xe, None, "experts_ep")
     else:
         xe = constrain(xe, "batch", "experts")
-    h = torch.einsum("becd,edf->becf", xe, p.wi.to(x.dtype))
+    h = torch.einsum("becd,edf->becf", xe, param(p, "wi").to(x.dtype))
     if cfg.expert_parallel:
         h = constrain(h, None, "experts_ep", None, "mlp")
     else:
         h = constrain(h, "batch", "experts", None, "mlp")
     h = _act(h, cfg.mlp_act)
     if cfg.mlp_act.endswith("_glu"):
-        h = h * torch.einsum("becd,edf->becf", xe, p.wg.to(x.dtype))
-    ye = torch.einsum("becf,efd->becd", h, p.wo.to(x.dtype))
+        h = h * torch.einsum("becd,edf->becf", xe, param(p, "wg").to(x.dtype))
+    ye = torch.einsum("becf,efd->becd", h, param(p, "wo").to(x.dtype))
     if cfg.expert_parallel:
         ye = constrain(ye, "batch", None)   # all-to-all back to token-major
-    ye = ye * wbuf[..., None]
-
-    # combine: scatter-add back to token positions (pad row S absorbs the
-    # empty slots)
-    flat_ix = (rows * (S + 1) + disp).reshape(B * E * C)
-    out = x.new_zeros((B * (S + 1), d)).index_add(0, flat_ix, ye.reshape(B * E * C, d))
-    return out.reshape(B, S + 1, d)[:, :S]
+    ye = constrain(ye * wbuf[..., None], "batch")
+    return on_shards(combine, rows)(ye, disp)

@@ -26,7 +26,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
-from .layers import Linear, apply_linear, gelu, raw_params
+from ..runtime import block_local, pad
+from .layers import Linear, apply_linear, gelu, param, raw_params
 
 RGLRU_C = 8.0
 GATE_BLOCKS = 16  # block-diagonal gate projections (Griffin uses per-head blocks)
@@ -60,18 +61,24 @@ class RGLRU(nn.Module):
 
 
 def _block_diag(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """x: (..., rw) -> block-diagonal linear with GATE_BLOCKS blocks."""
-    nb, blk, _ = w.shape
-    xs = x.reshape(*x.shape[:-1], nb, blk)
-    y = torch.einsum("...nb,nbc->...nc", xs, w.to(x.dtype))
-    return y.reshape(x.shape) + b.to(x.dtype)
+    """x: (..., rw) -> block-diagonal linear with GATE_BLOCKS blocks.
+    Inside a sharding context each device computes its own blocks
+    (``runtime.block_local``)."""
+    blk = w.shape[1]
+
+    def blocks(w: torch.Tensor, b: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        xs = x.reshape(*x.shape[:-1], w.shape[0], blk)
+        y = torch.einsum("...nb,nbc->...nc", xs, w.to(x.dtype))
+        return y.reshape(x.shape) + b.to(x.dtype)
+
+    return block_local(blocks, w, b, x)
 
 
 def _gates(p: RGLRU, xc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (a_t decay in fp32, gated input in fp32)."""
-    r = torch.sigmoid(_block_diag(p.gate_a, p.gate_a_b, xc).float())
-    i = torch.sigmoid(_block_diag(p.gate_x, p.gate_x_b, xc).float())
-    log_a = -RGLRU_C * F.softplus(p.lam.float()) * r
+    r = torch.sigmoid(_block_diag(param(p, "gate_a"), param(p, "gate_a_b"), xc).float())
+    i = torch.sigmoid(_block_diag(param(p, "gate_x"), param(p, "gate_x_b"), xc).float())
+    log_a = -RGLRU_C * F.softplus(param(p, "lam").float()) * r
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * i * xc.float()
     return a, gated
@@ -79,13 +86,13 @@ def _gates(p: RGLRU, xc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def causal_conv1d(p: RGLRU, x: torch.Tensor) -> torch.Tensor:
     """Depthwise causal temporal conv.  x: (B, S, rw)."""
-    w = p.conv.to(x.dtype)                  # (taps, rw)
+    w = param(p, "conv").to(x.dtype)        # (taps, rw)
     taps = w.shape[0]
-    xp = F.pad(x, (0, 0, taps - 1, 0))
+    xp = pad(x, (0, 0, taps - 1, 0))
     out = torch.zeros_like(x)
     for t in range(taps):                   # taps is tiny (4): unrolled
         out = out + xp[:, t:t + x.shape[1]] * w[t]
-    return out + p.conv_b.to(x.dtype)
+    return out + param(p, "conv_b").to(x.dtype)
 
 
 def _combine(left, right):
@@ -158,7 +165,7 @@ def apply_rglru(p: RGLRU, x: torch.Tensor, cfg,
         xc = causal_conv1d(p, xb_ext)[:, taps - 1:]
     else:
         # zeros before the prompt, as the conv's own padding
-        xb_ext = F.pad(xb, (0, 0, taps - 1, 0))
+        xb_ext = pad(xb, (0, 0, taps - 1, 0))
         xc = causal_conv1d(p, xb)
     new_conv = xb_ext[:, xb_ext.shape[1] - (taps - 1):]
     a, gated = _gates(p, xc)

@@ -24,7 +24,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels import ops
-from .layers import Linear, _scalar, apply_linear, raw_params, silu
+from ..runtime import constrain, on_shards, placements
+from ..runtime import pad as pad_zeros
+from .layers import (Linear, _scalar, apply_linear, merge_heads, param,
+                     raw_params, silu, split_heads)
 
 LORA_DIM = 32
 MIXES = ("r", "k", "v", "w", "g")
@@ -76,19 +79,20 @@ def _token_shift(x: torch.Tensor, prev: Optional[torch.Tensor]) -> torch.Tensor:
 def _ddlerp(p: TimeMix, x: torch.Tensor, xx: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Data-dependent token-shift mix for the five streams (RWKV6 ddlerp)."""
     base = x + (xx - x) * _scalar(0.5, x)
-    lora = torch.einsum("bsd,dk->bsk", base, p.mix_lora_a.to(x.dtype))
+    lora = torch.einsum("bsd,dk->bsk", base, param(p, "mix_lora_a").to(x.dtype))
     lora = torch.tanh(lora.reshape(*x.shape[:2], len(MIXES), LORA_DIM))
-    delta = torch.einsum("bsmk,mkd->bsmd", lora, p.mix_lora_b.to(x.dtype))
-    return {name: x + (xx - x) * (p.mu[m].to(x.dtype) + delta[:, :, m])
+    delta = torch.einsum("bsmk,mkd->bsmd", lora, param(p, "mix_lora_b").to(x.dtype))
+    mu = param(p, "mu")
+    return {name: x + (xx - x) * (mu[m].to(x.dtype) + delta[:, :, m])
             for m, name in enumerate(MIXES)}
 
 
 def _decay(p: TimeMix, xw: torch.Tensor) -> torch.Tensor:
     """log w_t (negative): -exp(w0 + lora(xw)); per channel, fp32.  The clip
     to [-8, 0.2] keeps the reference's chunkwise form inside fp32 range."""
-    a = torch.tanh(torch.einsum("bsd,dk->bsk", xw, p.w_lora_a.to(xw.dtype)))
-    dd = torch.einsum("bsk,kd->bsd", a, p.w_lora_b.to(xw.dtype))
-    return -torch.exp(torch.clamp(p.w0.float() + dd.float(), -8.0, 0.2))
+    a = torch.tanh(torch.einsum("bsd,dk->bsk", xw, param(p, "w_lora_a").to(xw.dtype)))
+    dd = torch.einsum("bsk,kd->bsd", a, param(p, "w_lora_b").to(xw.dtype))
+    return -torch.exp(torch.clamp(param(p, "w0").float() + dd.float(), -8.0, 0.2))
 
 
 def wkv6_chunked(r, k, v, logw, u, state=None, chunk: int = 64):
@@ -101,7 +105,7 @@ def wkv6_chunked(r, k, v, logw, u, state=None, chunk: int = 64):
     pad = n * chunk - T
     out_dtype = r.dtype
     if pad:
-        r, k, v, logw = (F.pad(a, (0, 0, 0, 0, 0, pad)) for a in (r, k, v, logw))
+        r, k, v, logw = (pad_zeros(a, (0, 0, 0, 0, 0, pad)) for a in (r, k, v, logw))
     f32 = torch.float32
     stream_dt = torch.bfloat16 if r.dtype != torch.float64 else r.dtype
 
@@ -121,15 +125,16 @@ def wkv6_chunked(r, k, v, logw, u, state=None, chunk: int = 64):
         total = cum[:, -1]
         q_tilde = r_c * torch.exp(cum_prev)
         k_tilde = k_c * torch.exp(-cum)
-        scores = torch.einsum("bthd,bshd->bhts", q_tilde, k_tilde)
+        # products batched over (b, h) as 4-d matmuls (heads second)
+        scores = torch.matmul(q_tilde.transpose(1, 2), k_tilde.permute(0, 2, 3, 1))
         scores = torch.where(mask[None, None], scores, torch.zeros_like(scores))
-        y = torch.einsum("bhts,bshd->bthd", scores, v_c)
+        y = torch.matmul(scores, v_c.transpose(1, 2)).transpose(1, 2)
         bonus = torch.einsum("bthd,hd->bth", r_c * k_c, uf)
         y = y + bonus[..., None] * v_c
-        y = y + torch.einsum("bthd,bhde->bthe", q_tilde, s)
+        y = y + torch.matmul(q_tilde.transpose(1, 2), s).transpose(1, 2)
         k_dec = k_c * torch.exp(total[:, None] - cum)
-        s = s * torch.exp(total)[..., None] + torch.einsum("bthd,bthe->bhde",
-                                                           k_dec, v_c)
+        s = s * torch.exp(total)[..., None] + torch.matmul(
+            k_dec.permute(0, 2, 3, 1), v_c.transpose(1, 2))
         ys.append(y.to(out_dtype))
     return torch.cat(ys, dim=1)[:, :T], s
 
@@ -150,15 +155,43 @@ def wkv6_sequential(r, k, v, logw, u, state=None):
     return torch.stack(ys, dim=1).to(r.dtype), s
 
 
+def wkv6_plain(r, k, v, logw, u, state=None):
+    """The reference's choice of form (``apply_time_mix``): chunked for a
+    sequence, sequential for one token.  Same signature as
+    ``wkv6_chunked``."""
+    fn = wkv6_chunked if r.shape[1] > 1 else wkv6_sequential
+    return fn(r, k, v, logw, u, state)
+
+
 def _group_norm(x: torch.Tensor, scale: torch.Tensor, H: int,
                 eps: float = 64e-5) -> torch.Tensor:
     """Per-head groupnorm on (B, T, d) with d = H * dh (RWKV6 ln_x)."""
     B, T, d = x.shape
-    xh = x.reshape(B, T, H, d // H).float()
+    # per head, whole on each device (never split on head_dim)
+    xh = constrain(split_heads(x, H, d // H), "batch", None, "heads").float()
     mu = torch.mean(xh, dim=-1, keepdim=True)
     var = torch.var(xh, dim=-1, keepdim=True, unbiased=False)
     y = (xh - mu) * torch.rsqrt(var + eps)
-    return (y.reshape(B, T, d) * scale.float()).to(x.dtype)
+    return (merge_heads(y) * scale.float()).to(x.dtype)
+
+
+def _per_head(wkv: WkvFn, r, k, v, logw, u, s0):
+    """``wkv(r, k, v, logw, u, s0)``; inside a sharding context on each
+    device's batch rows and heads (every head there where the heads do not
+    divide the model axis), r, k, v, logw, u and the state placed alike."""
+    pl = placements(r)
+    if pl is None:
+        return wkv(r, k, v, logw, u, s0)
+    from torch.distributed.tensor import Partial, Shard
+    r, k, v, logw = (constrain(t, "batch", None, "heads") for t in (r, k, v, logw))
+    u = constrain(u, "heads")
+    s0 = None if s0 is None else constrain(s0, "batch", "heads")
+    rows = placements(r)
+    state = tuple(Shard(1) if isinstance(q, Shard) and q.dim == 2 else q for q in rows)
+    u_grad = tuple(Partial() if isinstance(q, Shard) and q.dim == 0 else p_u
+                   for q, p_u in zip(rows, placements(u)))
+    grads = (rows, rows, rows, rows, u_grad, None if s0 is None else state)
+    return on_shards(wkv, rows, state, grads=grads)(r, k, v, logw, u, s0)
 
 
 def apply_time_mix(p: TimeMix, x: torch.Tensor, cfg,
@@ -175,14 +208,14 @@ def apply_time_mix(p: TimeMix, x: torch.Tensor, cfg,
     prev = state["shift"] if state is not None else None
     xx = _token_shift(x, prev)
     mixed = _ddlerp(p, x, xx)
-    r = apply_linear(p.wr, mixed["r"]).reshape(B, S, H, dh)
-    k = apply_linear(p.wk, mixed["k"]).reshape(B, S, H, dh)
-    v = apply_linear(p.wv, mixed["v"]).reshape(B, S, H, dh)
+    r = split_heads(apply_linear(p.wr, mixed["r"]), H, dh)
+    k = split_heads(apply_linear(p.wk, mixed["k"]), H, dh)
+    v = split_heads(apply_linear(p.wv, mixed["v"]), H, dh)
     g = apply_linear(p.wg, mixed["g"])
-    logw = _decay(p, mixed["w"]).reshape(B, S, H, dh)
+    logw = split_heads(_decay(p, mixed["w"]), H, dh)
     s0 = state["wkv"] if state is not None else None
-    y, s_final = wkv(r, k, v, logw, p.u, s0)
-    y = _group_norm(y.reshape(B, S, d), p.ln_scale, H)
+    y, s_final = _per_head(wkv, r, k, v, logw, param(p, "u"), s0)
+    y = _group_norm(merge_heads(y), param(p, "ln_scale"), H)
     out = apply_linear(p.wo, y * silu(g))
     if return_state:
         return out, {"shift": x[:, -1].float().contiguous(), "wkv": s_final}
@@ -195,8 +228,8 @@ def apply_channel_mix(p: TimeMix, x: torch.Tensor, cfg,
     """RWKV6 channel-mix (squared-ReLU FFN with receptance gate)."""
     prev = state["shift"] if state is not None else None
     xx = _token_shift(x, prev)
-    xk = x + (xx - x) * p.mu_ck.to(x.dtype)
-    xr = x + (xx - x) * p.mu_cr.to(x.dtype)
+    xk = x + (xx - x) * param(p, "mu_ck").to(x.dtype)
+    xr = x + (xx - x) * param(p, "mu_cr").to(x.dtype)
     kk = F.relu(apply_linear(p.ck, xk))
     vv = apply_linear(p.cv, kk * kk)
     out = torch.sigmoid(apply_linear(p.cr, xr)) * vv

@@ -19,7 +19,11 @@ against the encoder's output; the encoder's blocks are plain
 Every kernel of a serving block comes from a :class:`Kernels` bundle:
 ``KERNELS`` (``kernels.ops``: the Hopper kernels on the card, their plain
 versions on the CPU) on the serving path, ``PLAIN`` (the models' own plain
-forms) for comparisons on any device.  The serving path's prefill and its
+forms) for comparisons on any device, ``DRYRUN`` (the forms the reference's
+compiled steps run: ``mha``, the chunked WKV6 for a sequence and the
+sequential one for a token, the associative RG-LRU scan) for the sharded
+steps that ``launch.dryrun`` counts on the ``meta`` device, where
+``kernels.ops`` raises.  The serving path's prefill and its
 encoder take the bundle's attention for every attention (self, cross and
 the encoder's); decode attends with the plain ``mha_decode``.  Training
 takes no bundle: it runs the plain forms the reference trains with
@@ -37,16 +41,17 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..kernels import ops
-from ..runtime import constrain, scope
+from ..runtime import constrain, on_shards, placements, scope
 from .config import ModelConfig
 from .layers import (MLP, Attention, Norm, apply_linear, apply_mlp,
                      apply_norm, attention_block, attention_decode,
-                     cross_attention_decode, mha, rope, torch_dtype)
+                     cross_attention_decode, merge_heads, mha, rope,
+                     split_heads, torch_dtype)
 from .moe import MoE, apply_moe
 from .rglru import (RGLRU, apply_rglru, init_rglru_state, rglru_decode,
                     rglru_scan)
 from .rwkv6 import (TimeMix, apply_channel_mix, apply_time_mix,
-                    init_rwkv6_state, wkv6_chunked, wkv6_sequential)
+                    init_rwkv6_state, wkv6_plain, wkv6_sequential)
 
 PORTED_KINDS = ("global", "local", "moe_global", "moe_local", "rec", "rwkv")
 
@@ -65,6 +70,9 @@ class Kernels(NamedTuple):
 
 KERNELS = Kernels(ops.attention, ops.wkv6, ops.rglru_scan)
 PLAIN = Kernels(mha, wkv6_sequential, rglru_scan)
+# the forms the reference's compiled steps run (its models reach no Pallas
+# kernel): what a step counted on the meta device, the dry-run's, runs
+DRYRUN = Kernels(mha, wkv6_plain, rglru_scan)
 
 
 def check_kind(kind: str) -> None:
@@ -217,8 +225,7 @@ def _forward_block(kind: str, p: Block, x: torch.Tensor, cfg: ModelConfig,
     in training, a kernel for the encoder on the serving path."""
     h_in = apply_norm(p.ln1, x, cfg.norm)
     if kind == "rwkv":
-        wkv = wkv6_chunked if x.shape[1] > 1 else wkv6_sequential
-        x = x + apply_time_mix(p.tm, h_in, cfg, wkv=wkv)
+        x = x + apply_time_mix(p.tm, h_in, cfg, wkv=wkv6_plain)
         return x + apply_channel_mix(p.tm, apply_norm(p.ln2, x, cfg.norm), cfg)
     if kind == "rec":
         return _mlp_residual(p, x + apply_rglru(p.rec, h_in, cfg, scan=rglru_scan), cfg)
@@ -239,28 +246,37 @@ def _attention_with_cache(p: Attention, x: torch.Tensor, cfg: ModelConfig,
     """Prefill attention that also emits the KV cache buffer."""
     B, S, _ = x.shape
     H, K, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = apply_linear(p.wq, x).reshape(B, S, H, dh)
-    k = apply_linear(p.wk, x).reshape(B, S, K, dh)
-    v = apply_linear(p.wv, x).reshape(B, S, K, dh)
+    q = split_heads(apply_linear(p.wq, x), H, dh)
+    k = split_heads(apply_linear(p.wk, x), K, dh)
+    v = split_heads(apply_linear(p.wv, x), K, dh)
     if cfg.use_rope:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
     out = attention(q, k, v, causal=True, window=window,
-                    softcap=cfg.attn_softcap, scale=cfg.query_scale)
-    y = apply_linear(p.wo, out.reshape(B, S, H * dh))
-    if window and window < s_buf:
-        # ring buffer holding the last `window` positions at slot p % window
-        lo = max(S - window, 0)
-        slots = torch.arange(lo, S, device=x.device) % window
-        kc = k.new_zeros((B, window, K, dh))
-        vc = v.new_zeros((B, window, K, dh))
-        kc[:, slots] = k[:, lo:]
-        vc[:, slots] = v[:, lo:]
-    else:
-        kc = k.new_zeros((B, s_buf, K, dh))
-        vc = v.new_zeros((B, s_buf, K, dh))
-        kc[:, :S] = k
-        vc[:, :S] = v
+                    softcap=cfg.attn_softcap, scale=cfg.query_scale,
+                    pad_heads=cfg.pad_heads)
+    y = apply_linear(p.wo, merge_heads(out))
+
+    def buffers(k: torch.Tensor, v: torch.Tensor):
+        B = k.shape[0]
+        if window and window < s_buf:
+            # ring buffer holding the last `window` positions at slot p % window
+            lo = max(S - window, 0)
+            slots = torch.arange(lo, S, device=k.device) % window
+            kc = k.new_zeros((B, window) + tuple(k.shape[2:]))
+            vc = v.new_zeros((B, window) + tuple(v.shape[2:]))
+            kc[:, slots] = k[:, lo:]
+            vc[:, slots] = v[:, lo:]
+        else:
+            kc = k.new_zeros((B, s_buf) + tuple(k.shape[2:]))
+            vc = v.new_zeros((B, s_buf) + tuple(v.shape[2:]))
+            kc[:, :S] = k
+            vc[:, :S] = v
+        return kc, vc
+
+    # the cache is written position by position, per batch row and head:
+    # on each device's shards inside a sharding context
+    kc, vc = on_shards(buffers, placements(k), placements(v))(k, v)
     return y, {"k": kc, "v": vc}
 
 
