@@ -96,6 +96,21 @@ script.  Phases, each raising on failure (nothing is caught):
               ``AsyncCheckpointer``; the arrays restored onto the card equal
               the saved ones bit for bit; ``--resume`` to step 4 gives the
               losses of an uninterrupted 4-step run within 1e-5 relative;
+           4. bf16 checkpoints: ``train.run`` on mixtral-8x7b at published
+              widths cut to 1 layer (bf16 parameters, the fp32 master and
+              fp32 moments), batch 1 x 8192 (so each q-chunk of ``mha``
+              scores its KV band of 4096 + 512 of the 8192 keys), 2 steps
+              with ``--ckpt-dir`` (a temporary directory in the checkout,
+              removed after; the disk's free space printed first and
+              required for two checkpoints) and ``--ckpt-every 2``; the
+              checkpoint (bf16 leaves as numpy ``V2``) restored into a fresh
+              state on the card equals the saved tensors in dtype and bits;
+              the restored state is saved again over step 2 (the timed
+              save); ``--resume`` to step 4 gives the losses of an
+              uninterrupted 4-step run within 1e-5 relative; printed: the
+              arrays, GB, save and restore seconds, the warm step, peak
+              memory and how many final tensors the two runs share bit for
+              bit;
   E      the serving path as in B on this slice's families, bf16 weights
          from the seed, each at published widths: mixtral-8x7b (MoE, window
          4096) cut to 16 of 32 layers, batch 2, prompt 8192; gemma2-27b at
@@ -170,14 +185,18 @@ script.  Phases, each raising on failure (nothing is caught):
          count plus the padded heads' attention products (56 heads padded
          to 64: 8/56 of H.2's batched products, the attention's; every
          other product is split 256 ways), within 1 %; the roofline prints
-         one row per counted cell.  Each cell's count time, per-device flops, bytes,
-         collective bytes by kind and three terms are printed.
+         one row per counted cell; mixtral-8x7b prefill_32k's matmul flops
+         per device equal ``banded_prefill_flops``, the closed form with each
+         q-chunk's attention over its KV band of 4096 + 512 keys (1 %).  Each
+         cell's count time, per-device flops, bytes, collective bytes by kind
+         and three terms are printed.
 
 The last lines are the card's name and power limit, one JSON line of kernel
 records, and the verdict ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -215,6 +234,13 @@ TRAIN_ARGV = ["--arch", "yi-34b", "--full-width", "--batch", "2", "--seq", "2048
 TRAIN_SMALL = ["--arch", "yi-34b", "--d-model", "256", "--batch", "2", "--seq", "128"]
 TRAIN_RTOL = 1e-4                # card against CPU, one fp32 step
 RESUME_RTOL = 1e-5               # resumed against uninterrupted losses
+# D.4: mixtral-8x7b at published widths cut to one layer, bf16 parameters and
+# the fp32 master; 8192 tokens, so each q-chunk of 512 scores the band of
+# 4096 + 512 keys
+D4_ARGV = ["--arch", "mixtral-8x7b", "--full-width", "--layers", "1", "--batch", "1",
+           "--seq", "8192", "--analyze-every", "2"]
+D4_CKPT_BYTES = 2 + 4 + 4 + 4    # per parameter: bf16 weight, fp32 master, m, v
+D4_DISK_MARGIN = 4e9             # bytes free beyond two checkpoints
 # phase G: the case studies at tests/test_case_studies.py's scale on fixed taus
 # (seconds per unit of work), so no clock decides their verdicts; the tests of
 # tests/test_torch_workloads.py read these.  ST's (tau_con, tau_str, tau_blk)
@@ -895,6 +921,117 @@ def phase_d_checkpoint(torch, dev):
     return max(gaps)
 
 
+@contextlib.contextmanager
+def timed_writes(ckpt):
+    """The seconds of each checkpoint write (``ckpt.save``, which the
+    trainer's ``AsyncCheckpointer`` calls on its worker thread), appended to
+    the list yielded."""
+    writes, real_save = [], ckpt.save
+
+    def save(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return real_save(*args, **kwargs)
+        finally:
+            writes.append(time.perf_counter() - t0)
+
+    ckpt.save = save
+    try:
+        yield writes
+    finally:
+        ckpt.save = real_save
+
+
+def phase_d_bf16_checkpoint(torch, dev, card):
+    """D.4: mixtral-8x7b (published widths x1 layer, bf16 parameters, fp32
+    master and moments) saves at step 2, restores onto the card bit for bit
+    and resumes to step 4 against an uninterrupted run."""
+    import shutil
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.device import synchronize
+    from repro_torch.launch import steps, train
+    from repro_torch.optim import adamw
+
+    args = train.parse_args(D4_ARGV)
+    cfg = train.build_config(args)
+    need = 2 * cfg.total_params() * D4_CKPT_BYTES + D4_DISK_MARGIN
+    free_bytes = shutil.disk_usage(SRC.parent).free
+    print(f"[D] D.4 disk: {free_bytes / 1e9:.1f} GB free under {SRC.parent}; two checkpoints "
+          f"of ~{cfg.total_params() * D4_CKPT_BYTES / 1e9:.1f} GB and a margin need "
+          f"{need / 1e9:.1f} GB")
+    if free_bytes < need:
+        raise RuntimeError(f"D.4 needs {need / 1e9:.1f} GB of disk for its checkpoints, "
+                           f"{free_bytes / 1e9:.1f} GB are free under {SRC.parent}")
+
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+    def tensors(state):
+        out = {f"params/{k}": v for k, v in state["params"].named_parameters()}
+        for group in ("m", "v", "master"):
+            out.update({f"opt/{group}/{k}": v for k, v in state["opt"][group].items()})
+        out["opt/step"] = state["opt"]["step"]
+        return out
+
+    with timed_writes(ckpt) as writes, tempfile.TemporaryDirectory(dir=SRC.parent) as tmp:
+        first = train.run(D4_ARGV + ["--steps", "2", "--ckpt-dir", tmp, "--ckpt-every", "2"])
+        saved = tensors(first.state)
+        n_params = sum(p.numel() for p in first.state["params"].parameters())
+        dtypes = sorted({str(t.dtype) for t in saved.values()})
+        first_ms, first_peak = first.step_ms, first.peak_bytes
+        fresh = steps.init_state(first.cfg, adamw.AdamWConfig(), seed=1, device=dev)
+        synchronize(dev)
+        t0 = time.perf_counter()
+        tree, manifest = ckpt.restore(tmp, {"state": steps.state_tree(fresh)})
+        steps.load_state_tree(fresh, tree["state"])
+        synchronize(dev)
+        restore_s = time.perf_counter() - t0
+        groups = [tree["state"]["params"]] + [tree["state"]["opt"][g] for g in ("m", "v", "master")]
+        v2 = sum(a.dtype.kind == "V" for g in groups for a in g.values())
+        back = tensors(fresh)
+        diff = [k for k in saved if saved[k].dtype != back[k].dtype
+                or back[k].device != saved[k].device or not torch.equal(bits(saved[k]), bits(back[k]))]
+        if set(saved) != set(back) or diff or manifest["step"] != 2:
+            raise RuntimeError(f"D.4: restored tensors differ from the saved ones: {diff[:5]}")
+        del first, fresh, saved, back, tree, groups
+        free()
+        resumed = train.run(D4_ARGV + ["--steps", "4", "--ckpt-dir", tmp, "--resume"])
+        on_disk = sorted(p.name for p in Path(tmp).glob("step_*"))
+        resumed_state = tensors(resumed.state)
+        resumed_losses, start = resumed.losses, resumed.start_step
+        del resumed
+        free()
+        whole = train.run(D4_ARGV + ["--steps", "4"])
+        whole_state = tensors(whole.state)
+        same = sum(torch.equal(bits(resumed_state[k]), bits(whole_state[k])) for k in whole_state)
+        n_tensors = len(whole_state)
+        del resumed_state, whole_state
+    gaps = [abs(x - y) / abs(y) for x, y in zip(resumed_losses, whole.losses[2:])]
+    gb = manifest["total_bytes"] / 1e9
+    peak = max(first_peak, whole.peak_bytes) / 1e9
+    print(f"[D] D.4 {cfg.name} (d_model {cfg.d_model}, {cfg.n_layers} layer), {args.batch} x "
+          f"{args.seq}, {n_params / 1e9:.3f} B parameters (tensors {dtypes}): checkpoint "
+          f"{manifest['n_arrays']} arrays ({v2} bf16 as V2), {gb:.2f} GB; restore {restore_s:.1f} s "
+          f"({gb / restore_s:.2f} GB/s) onto the card bit for bit; the trainer's writes (step 2, "
+          f"step 2 again at the run's end, step 4) {', '.join(f'{w:.1f}' for w in writes)} s "
+          f"({gb / min(writes):.2f} GB/s at best; host clock); on disk after the resume: "
+          f"{on_disk} | card: {card}")
+    print(f"[D] D.4 resumed losses {resumed_losses} vs uninterrupted {whole.losses[2:]}: "
+          f"relative gaps {[f'{g:.1e}' for g in gaps]} (tolerance {RESUME_RTOL}); final "
+          f"states equal bit for bit in {same} of {n_tensors} tensors")
+    warm = whole.step_ms[1:]
+    print(f"[D] D.4 warm step (steps 2-4, CUDA events): median {statistics.median(warm):.3f} ms, "
+          f"range {min(warm):.3f}-{max(warm):.3f} ms (first run: {[round(x, 3) for x in first_ms]}); "
+          f"peak memory {peak:.2f} GB | card: {card}")
+    if start != 2 or len(gaps) != 2 or max(gaps) > RESUME_RTOL:
+        raise RuntimeError("D.4: the resumed run does not continue the uninterrupted one")
+    out = dict(params_b=n_params / 1e9, n_arrays=manifest["n_arrays"], gb=gb, write_s=writes,
+               restore_s=restore_s, gaps=gaps, step_ms=whole.step_ms, peak_gb=peak)
+    del whole
+    free()
+    return out
+
+
 def phase_g_case_studies(card):
     """G.1: the paper's ST and NPAR1WAY case studies through the port, first
     on the fixed taus (the paper's verdicts required), then each counterpart
@@ -1230,6 +1367,33 @@ def phase_h_mesh(torch, card):
         dist.destroy_process_group()
 
 
+def banded_prefill_flops(cfg, batch, seq, mesh):
+    """(matmul flops per device of one prefill of a MoE arch with a sliding
+    window on a (data, model) mesh, as the dry-run counts them, in words):
+    batch rows split over ``data``; the projections, heads and experts over
+    ``model``; per layer the Q/K/V/O projections, the experts' capacity
+    slots (three products each), the router whole, and QK^T and PV of each
+    q-chunk of 512 over its band of ``window + 512`` keys (``mha``'s KV
+    band), plus the last position's logits."""
+    from repro_torch.models.moe import capacity
+    data, model = mesh
+    d, H, K, dh, f = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head, cfg.d_ff
+    rows = batch // data
+    tokens = rows * seq
+    band = min(cfg.window + 512, seq)
+    proj = 2 * tokens * d * (2 * H * dh + 2 * K * dh) / model
+    experts = 3 * 2 * rows * cfg.n_experts * capacity(cfg, seq) * d * f / model
+    router = 2 * tokens * d * cfg.n_experts
+    attention = 2 * 2 * rows * (H // model) * seq * band * dh
+    logits = 2 * rows * d * cfg.vocab_size / model
+    L = cfg.n_layers
+    total = L * (proj + experts + router + attention) + logits
+    return total, (f"L x (projections {proj:.4e} + experts {experts:.4e} + router {router:.4e} "
+                   f"+ attention over the band of {band} keys {attention:.4e}) + logits "
+                   f"{logits:.4e} = {total:.4e}; all {seq} keys would add "
+                   f"{L * attention * (seq / band - 1):.4e}")
+
+
 def phase_i(card, h_run):
     """I: the dry-run's cells as processes side by side, the roofline over
     their records, and the checks of the module docstring."""
@@ -1321,6 +1485,16 @@ def phase_i(card, h_run):
     if abs(256 * single / want - 1) > I_RTOL:
         raise RuntimeError(f"one pod's matmul flops x 256 are {256 * single / want:.4f} of "
                            "the unsharded count plus the padded heads")
+    # mixtral's prefill_32k scores each q-chunk's KV band of 4096 + 512 keys
+    mx = recs[("mixtral-8x7b", "prefill_32k", "single")]
+    shape = SHAPES["prefill_32k"]
+    band, how = banded_prefill_flops(get_config("mixtral-8x7b"), shape.global_batch,
+                                     shape.seq_len, mx["mesh_shape"])
+    got = mx["cost"]["matmul flops"]
+    print(f"[I] mixtral-8x7b prefill_32k matmul flops per device {got:.4e} against the banded "
+          f"closed form {how}: {got / band:.4f} (want 1 within {100 * I_RTOL:.0f} %)")
+    if abs(got / band - 1) > I_RTOL:
+        raise RuntimeError(f"mixtral prefill_32k counts {got / band:.4f} of the banded closed form")
     return dict(wall=wall, recs=recs, rows=rows)
 
 
@@ -1571,6 +1745,7 @@ def main() -> int:
     phase_d_card_vs_cpu(torch, dev)
     d_run = phase_d_full_width(torch, dev, counters, card, bf16_peak)
     phase_d_checkpoint(torch, dev)
+    phase_d_bf16_checkpoint(torch, dev, card)
     print(f"[D] passed; smoke ran {time.perf_counter() - t_start:.1f} s after the card check")
 
     # -- E: this slice's families through the serving path ------------------------------

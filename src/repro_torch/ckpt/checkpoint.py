@@ -16,9 +16,13 @@ numbers as numbers.  ``AsyncCheckpointer`` copies the tree to host memory
 synchronously and writes it on a worker thread; a failed background write
 is re-raised, never silent.
 
-bfloat16 tensors raise ``NotImplementedError``: numpy has no bfloat16
-without ml_dtypes, which the port does not use, and writing their bits
-under another dtype would restore as something else in the reference.
+A bfloat16 tensor is written as its 16-bit patterns viewed as numpy's
+``V2``: the reference's ``np.savez`` writes an ml_dtypes ``bfloat16`` leaf
+so, and ``np.load`` returns ``V2`` for both packages' files.  ``restore``
+turns a ``V2`` array back into a bfloat16 tensor, bit for bit, where the
+template leaf is one; a numpy template leaf gets the ``V2`` array as it is,
+as in the reference (``launch.steps.load_state_tree`` reads it as
+bfloat16).  The port needs no ml_dtypes.
 """
 from __future__ import annotations
 
@@ -41,20 +45,31 @@ RESERVED_MANIFEST_KEYS = frozenset({"step", "n_arrays", "total_bytes",
                                     "time"})
 
 
-def refuse_bfloat16(key: str, leaf) -> None:
-    """Raise ``NotImplementedError`` for a bfloat16 tensor leaf."""
-    if isinstance(leaf, torch.Tensor) and leaf.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            f"{key}: bfloat16 checkpoints are not ported yet (numpy has "
-            "no bfloat16 without ml_dtypes)")
+def _is_bf16_bits(dtype: np.dtype) -> bool:
+    """Whether ``dtype`` is the ``V2`` a bfloat16 leaf is saved and loaded
+    as (either package's)."""
+    return dtype.kind == "V" and dtype.itemsize == 2 and dtype.names is None
 
 
-def _host_array(key: str, leaf) -> np.ndarray:
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A host copy of ``t`` as numpy; a bfloat16 tensor's bits as ``V2``."""
+    t = t.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2")
+    return t.numpy()
+
+
+def to_tensor(a: np.ndarray) -> torch.Tensor:
+    """``a`` as a CPU tensor sharing its memory; a ``V2`` array, or an
+    ml_dtypes ``bfloat16`` one (by dtype name), as bfloat16, bit for bit."""
+    if _is_bf16_bits(a.dtype) or a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _host_array(leaf) -> np.ndarray:
     """A leaf as a numpy array (a copy for tensors)."""
-    if isinstance(leaf, torch.Tensor):
-        refuse_bfloat16(key, leaf)
-        return leaf.detach().to("cpu", copy=True).numpy()
-    return np.asarray(leaf)
+    return to_numpy(leaf) if isinstance(leaf, torch.Tensor) else np.asarray(leaf)
 
 
 def _items(tree, prefix: str = ""):
@@ -72,7 +87,7 @@ def _items(tree, prefix: str = ""):
 
 
 def _flatten(tree) -> Dict[str, np.ndarray]:
-    return {key: _host_array(key, leaf) for key, leaf in _items(tree)}
+    return {key: _host_array(leaf) for key, leaf in _items(tree)}
 
 
 def _to_host(tree):
@@ -82,7 +97,7 @@ def _to_host(tree):
     if isinstance(tree, (list, tuple)):
         return type(tree)(_to_host(v) for v in tree)
     if isinstance(tree, torch.Tensor):
-        return _host_array("", tree)
+        return _host_array(tree)
     return tree
 
 
@@ -104,7 +119,10 @@ def _unflatten(template, flat: Dict[str, np.ndarray], prefix: str = ""):
     if isinstance(template, (int, float)):      # python scalars round-trip
         return type(template)(arr.item())
     if isinstance(template, torch.Tensor):
-        return torch.from_numpy(arr).to(template.device)
+        if _is_bf16_bits(arr.dtype) and template.dtype != torch.bfloat16:
+            raise TypeError(f"{key}: the checkpoint holds bfloat16 bits (V2) for a "
+                            f"{template.dtype} tensor")
+        return to_tensor(arr).to(template.device)
     return arr
 
 

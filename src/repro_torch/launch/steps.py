@@ -343,8 +343,9 @@ def hlo_cost_provider(analyzer, regions, anchor: str = "step", base=None):
 def state_tree(state: State) -> Dict[str, object]:
     """The state as the reference's pytree, each group of tensors flattened
     by keypath: ``{"params": {keypath: array}, "opt": {"m": {...}, "v":
-    {...}, "step": array, ["master": {...}]}}`` (numpy copies).  A bfloat16
-    tensor raises ``NotImplementedError``."""
+    {...}, "step": array, ["master": {...}]}}`` (numpy copies; a bfloat16
+    tensor's bits as ``V2``, so bf16 parameters and moments beside the fp32
+    master carry as they are)."""
     model: Model = state["params"]
     opt = state["opt"]
     cfg = model.cfg

@@ -299,10 +299,6 @@ def run(argv=None) -> TrainResult:
 
     saver = None
     if args.ckpt_dir:
-        # bf16 parameters (mixtral's, moonshot's) cannot be checkpointed
-        # yet: refuse before the first step rather than at the first save
-        for name, p in state["params"].named_parameters():
-            ckpt.refuse_bfloat16(f"params/{name}", p)
         saver = ckpt.AsyncCheckpointer(args.ckpt_dir)
         last = ckpt.latest_step(args.ckpt_dir)
         if args.resume and last is not None:

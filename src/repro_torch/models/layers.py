@@ -231,7 +231,10 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     are zeros that are sliced off).  ``constrain`` pins q, k, v, the
     scores and each q-chunk (the reference's stacked chunks ``qs``) where
     the reference does.  Under autograd each q-chunk is checkpointed, as the
-    reference's are, so only one chunk's fp32 scores live in the backward."""
+    reference's are, so only one chunk's fp32 scores live in the backward.
+    With a causal ``window``, no ``k_len`` and several q-chunks, each chunk
+    scores only the band of ``min(window + q_chunk, Sk)`` keys that can
+    reach it, as the reference's does."""
     B, Sq, H, dh = q.shape
     Sk, K = k.shape[1], k.shape[2]
     G = H // K
@@ -249,15 +252,23 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q = constrain(q, "batch", None, "heads")
     k = constrain(k, "batch", None, "heads")
     v = constrain(v, "batch", None, "heads")
-    k_pos = torch.arange(Sk, device=q.device)
     kf = k.float()
+    # sliding-window KV band: a q-chunk sees keys in (q_start - window,
+    # q_end) only, so its scores are q_chunk x (window + q_chunk), not
+    # q_chunk x Sk (the reference's band; where it spans all Sk keys, no
+    # narrowing)
+    band = (window + q_chunk if window and causal and k_len is None
+            and Sq > q_chunk and window + q_chunk < Sk else 0)
 
     def block(qc: torch.Tensor, q_pos: torch.Tensor, kf: torch.Tensor,
-              v: torch.Tensor) -> torch.Tensor:
+              v: torch.Tensor, start: int) -> torch.Tensor:
+        if band:
+            kf, v = kf.narrow(1, start, band), v.narrow(1, start, band)
+        k_pos = torch.arange(start, start + kf.shape[1], device=qc.device)
         s = torch.matmul(qc.float().transpose(1, 2), kf.permute(0, 2, 3, 1))
         s = constrain(s, "batch", "heads")
         s = _softcap(s, softcap)
-        mask = torch.ones((qc.shape[1], Sk), dtype=torch.bool, device=q.device)
+        mask = torch.ones((qc.shape[1], kf.shape[1]), dtype=torch.bool, device=qc.device)
         if causal:
             mask &= q_pos[:, None] >= k_pos[None, :]
         if window:
@@ -275,10 +286,13 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             return checkpoint(block, *args, use_reentrant=False)
     else:
         chunk_fn = block
+    # each band ends at its chunk's padded end, as the reference's does
+    starts = [min(max(q_offset + c + q_chunk - band, 0), Sk - band) if band else 0
+              for c in range(0, Sq, q_chunk)]
     outs = [chunk_fn(constrain(q[:, c:c + q_chunk], "batch", None, "heads"),
                      q_offset + torch.arange(c, min(c + q_chunk, Sq),
-                                             device=q.device), kf, v)
-            for c in range(0, Sq, q_chunk)]
+                                             device=q.device), kf, v, start)
+            for c, start in zip(range(0, Sq, q_chunk), starts)]
     out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     return out if H == H_real else out[:, :, :H_real]
 

@@ -12,12 +12,13 @@ layer leaf; an encoder-decoder's encoder is stacked likewise under
 of the same name (top-level leaves such as ``patch_proj/w``,
 ``frame_proj/w`` and ``enc_norm/scale`` keep their place).  No
 array is transposed: the port keeps the reference's ``(d_in, d_out)``
-weight layout.  Arrays of numpy's ``bfloat16`` extension dtype are taken
-bit for bit.  :func:`to_jax_params` is the inverse: it restacks the port's
-layers by group into the reference's keypaths, which is what makes the two
-packages' checkpoints interchangeable; ``to_jax_layout`` /
-``from_jax_layout`` do the same for any mapping keyed like the model's
-parameters (the optimizer's moments).  :func:`param_axes` gives every
+weight layout.  bfloat16 arrays, numpy ``V2`` (how either package's
+checkpoint loads them) or ml_dtypes' ``bfloat16``, are taken bit for bit.
+:func:`to_jax_params` is the inverse (bfloat16 tensors as ``V2``): it
+restacks the port's layers by group into the reference's keypaths, which
+is what makes the two packages' checkpoints interchangeable;
+``to_jax_layout`` / ``from_jax_layout`` do the same for any mapping keyed
+like the model's parameters (the optimizer's moments).  :func:`param_axes` gives every
 parameter's logical sharding axes under the same keypaths.
 """
 from __future__ import annotations
@@ -27,6 +28,7 @@ from typing import Dict, Mapping, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from ..ckpt.checkpoint import to_numpy, to_tensor
 from ..device import resolve_device
 from .config import ModelConfig
 from .model import Model
@@ -34,10 +36,9 @@ from .transformer import group_meta
 
 
 def _to_tensor(a: np.ndarray) -> torch.Tensor:
-    a = np.array(a, order="C")        # a writable copy
-    if a.dtype.name == "bfloat16":       # ml_dtypes' extension type
-        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
-    return torch.from_numpy(a)
+    if not (a.flags.writeable and a.flags.c_contiguous):
+        a = np.array(a, order="C")       # a writable copy
+    return to_tensor(a)
 
 
 def _stacks(cfg: ModelConfig) -> Tuple[Tuple[str, str, Tuple], ...]:
@@ -60,14 +61,6 @@ def _layer_index(meta) -> Dict[int, Tuple[int, int, int]]:
                 out[start + r * len(unit) + i] = (g, r, i)
         start += n * len(unit)
     return out
-
-
-def _to_numpy(name: str, t: torch.Tensor) -> np.ndarray:
-    if t.dtype == torch.bfloat16:
-        raise NotImplementedError(
-            f"{name}: bfloat16 arrays are not ported yet (numpy has no "
-            "bfloat16 without ml_dtypes, which the port does not use)")
-    return t.detach().to("cpu", copy=True).numpy()
 
 
 def _jax_keys(cfg: ModelConfig, names) -> Dict[str, Tuple[str, Optional[int]]]:
@@ -117,16 +110,17 @@ def to_jax_layout(cfg: ModelConfig,
     array}``, the layers of each group stacked on a leading axis
     (``layers.3.attn.wq.w`` -> ``groups/0/pos0/attn/wq/w[3]``,
     ``enc_layers.1.mlp.wi.w`` -> ``enc_groups/0/pos0/mlp/wi/w[1]``).
-    Arrays are copies.  A bfloat16 tensor raises ``NotImplementedError``."""
+    Arrays are copies; a bfloat16 tensor's bits come as numpy ``V2``, as a
+    bfloat16 leaf of the reference's checkpoints loads."""
     stacks: Dict[str, Dict[int, torch.Tensor]] = {}
     flat: Dict[str, np.ndarray] = {}
     for name, (key, rep) in _jax_keys(cfg, named).items():
         if rep is not None:
             stacks.setdefault(key, {})[rep] = named[name]
         else:
-            flat[key] = _to_numpy(name, named[name])
+            flat[key] = to_numpy(named[name])
     for key, reps in stacks.items():
-        flat[key] = _to_numpy(key, torch.stack([reps[r] for r in range(len(reps))]))
+        flat[key] = to_numpy(torch.stack([reps[r] for r in range(len(reps))]))
     return flat
 
 
@@ -139,7 +133,8 @@ def to_jax_params(model: Model) -> Dict[str, np.ndarray]:
 def from_jax_layout(cfg: ModelConfig, flat: Mapping[str, np.ndarray]
                     ) -> Dict[str, torch.Tensor]:
     """``{reference keypath: array}`` -> ``{port parameter name: tensor}``
-    (CPU tensors; stacked layers split apart)."""
+    (CPU tensors, sharing memory with the arrays that are writable and
+    C-contiguous, copies of the others; stacked layers split apart)."""
     groups = {}    # (reference prefix, group) -> (port prefix, first layer, unit length, n)
     for ref, port, meta in _stacks(cfg):
         start = 0

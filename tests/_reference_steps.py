@@ -6,7 +6,9 @@
 
 Each case is ``{"mode": "train" | "prefill" | "decode", "pad_heads": int,
 "microbatches": int, "mesh": [data, model]}``, run on the reduced yi-34b of
-``OVERRIDES`` at batch ``B`` and sequence ``S`` through ``jit_train_step``
+``OVERRIDES`` at batch ``B`` and sequence ``S`` (or, given ``"arch"``,
+``"batch"`` and ``"seq"``, that arch's ``reduced_config`` at that shape)
+through ``jit_train_step``
 / ``jit_prefill_step`` / ``jit_serve_step`` on ``input_specs``, on a mesh
 over the first data x model host devices.  The mesh is built as
 ``launch.mesh.make_host_mesh`` builds it, with ``Auto`` axes, which the
@@ -56,24 +58,27 @@ def _batched_dot_flops(a, name):
     return total
 
 
-def measure(mode: str, pad_heads: int, microbatches: int, mesh) -> dict:
-    cfg = dataclasses.replace(reduced_config("yi-34b", **OVERRIDES), pad_heads=pad_heads)
+def measure(mode: str, pad_heads: int, microbatches: int, mesh, arch: str = "yi-34b",
+            batch: int = B, seq: int = S) -> dict:
+    overrides = OVERRIDES if arch == "yi-34b" else {}
+    cfg = dataclasses.replace(reduced_config(arch, **overrides), pad_heads=pad_heads)
     n = mesh[0] * mesh[1]
     jmesh = Mesh(np.asarray(jax.devices()[:n]).reshape(mesh), ("data", "model"))
-    batch = input_specs(cfg, B, S, mode)
+    specs = input_specs(cfg, batch, seq, mode)
     with jmesh:
         if mode == "train":
             jitted, (shapes, _, _) = steps.jit_train_step(
-                cfg, adamw.AdamWConfig(), jmesh, batch, microbatches=microbatches)
+                cfg, adamw.AdamWConfig(), jmesh, specs, microbatches=microbatches)
         elif mode == "prefill":
-            jitted, (shapes, _, _) = steps.jit_prefill_step(cfg, jmesh, batch)
+            jitted, (shapes, _, _) = steps.jit_prefill_step(cfg, jmesh, specs)
         else:
-            jitted, (shapes, _, _) = steps.jit_serve_step(cfg, None, jmesh, batch)
-        compiled = jitted.lower(shapes, batch).compile()
+            jitted, (shapes, _, _) = steps.jit_serve_step(cfg, None, jmesh, specs)
+        compiled = jitted.lower(shapes, specs).compile()
     a = jha.Analyzer(compiled.as_text())
     mem = compiled.memory_analysis()
     return {"mode": mode, "pad_heads": pad_heads, "microbatches": microbatches,
-            "mesh": list(mesh), "dots": _dot_flops(a, a.entry),
+            "mesh": list(mesh), "arch": arch, "batch": batch, "seq": seq,
+            "dots": _dot_flops(a, a.entry),
             "batched_dots": _batched_dot_flops(a, a.entry),
             "argument_bytes": int(mem.argument_size_in_bytes),
             "output_bytes": int(mem.output_size_in_bytes),

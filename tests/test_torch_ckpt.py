@@ -7,7 +7,9 @@ restores in the other: restoring one checkpoint through both packages
 gives equal arrays and equal manifests, in both directions.  Also: atomic
 re-save of a step, ``_gc(keep)``, the reserved manifest keys,
 ``AsyncCheckpointer`` (host snapshot at ``save``, failures re-raised), and
-the refusal of bfloat16 leaves.
+a bfloat16 leaf's round trip (its bits as ``V2``; into a tensor of another
+dtype it raises).  ``tests/test_torch_ckpt_bf16.py`` holds bf16 and
+mixed-precision states against the reference's.
 """
 import json
 
@@ -166,7 +168,19 @@ def test_async_checkpointer_reraises_a_failed_write(tmp_path):
 
 
 def test_bf16_leaf_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ckpt.save(tmp_path, 1, {"w": torch.zeros(2, dtype=torch.bfloat16)})
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        ckpt.AsyncCheckpointer(tmp_path).save(1, {"w": torch.zeros(2, dtype=torch.bfloat16)})
+    """A bf16 leaf is saved (by ``save`` and ``AsyncCheckpointer``) as its
+    bits viewed as ``V2`` and restored into a bf16 tensor bit for bit; it
+    raises only where the template's tensor has another dtype."""
+    w = torch.tensor([1.0, -2.5, 3e-3, float("inf")]).to(torch.bfloat16)
+    ckpt.save(tmp_path / "sync", 1, {"w": w})
+    saver = ckpt.AsyncCheckpointer(tmp_path / "async")
+    saver.save(1, {"w": w})
+    saver.wait()
+    for d in ("sync", "async"):
+        with np.load(tmp_path / d / "step_1" / "arrays.npz") as z:
+            assert z["w"].dtype == np.dtype("V2")
+        tree, _ = ckpt.restore(tmp_path / d, {"w": torch.zeros(4, dtype=torch.bfloat16)})
+        assert tree["w"].dtype == torch.bfloat16
+        assert torch.equal(tree["w"].view(torch.int16), w.view(torch.int16))
+        with pytest.raises(TypeError, match="w: the checkpoint holds bfloat16 bits"):
+            ckpt.restore(tmp_path / d, {"w": torch.zeros(4)})

@@ -437,3 +437,36 @@ def test_collector_allgather_moves_blobs_on_the_card(card, tmp_path):
         assert col._allgather(b"") == [None]
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("moment_dtype", ["float32", "bfloat16"])
+def test_bf16_checkpoint_round_trips_on_the_card(card, tmp_path, moment_dtype):
+    """A mixed-precision state on the card (the reduced mixtral's bf16
+    parameters, the fp32 master, fp32 or bf16 moments) after one step, saved
+    by ``AsyncCheckpointer`` (bf16 as ``V2``) and restored into a fresh state
+    on the card: every tensor has its dtype and bits back."""
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import reduced_config
+    from repro_torch.launch import steps
+    from repro_torch.optim import adamw
+
+    cfg, opt = reduced_config("mixtral-8x7b"), adamw.AdamWConfig(moment_dtype=moment_dtype)
+    state = steps.init_state(cfg, opt, seed=0, device=card)
+    toks = torch.randint(0, cfg.vocab_size, (2, 33), generator=torch.Generator().manual_seed(0))
+    state, _ = steps.make_train_step(cfg, opt)(
+        state, {"tokens": toks[:, :-1].to(card), "labels": toks[:, 1:].to(card)})
+    saver = ckpt.AsyncCheckpointer(tmp_path)
+    saver.save(1, {"state": steps.state_tree(state)})
+    saver.wait()
+    fresh = steps.init_state(cfg, opt, seed=1, device=card)
+    tree, _ = ckpt.restore(tmp_path, {"state": steps.state_tree(fresh)})
+    steps.load_state_tree(fresh, tree["state"])
+    assert tree["state"]["params"]["embed/table"].dtype.str == "|V2"
+    pairs = [(dict(state["params"].named_parameters()), dict(fresh["params"].named_parameters()))]
+    pairs += [(state["opt"][k], fresh["opt"][k]) for k in ("m", "v", "master")]
+    for a, b in pairs:
+        for name in a:
+            assert b[name].device.type == card.type and a[name].dtype == b[name].dtype, name
+            bits = torch.int16 if a[name].dtype == torch.bfloat16 else torch.int32
+            assert torch.equal(a[name].view(bits), b[name].view(bits)), name
+    assert {p.dtype for p in fresh["params"].parameters()} == {torch.bfloat16}

@@ -171,12 +171,14 @@ def reference():
     return {(r["mode"], r["pad_heads"], r["microbatches"], tuple(r["mesh"])): r for r in rows}
 
 
-def _port(fake_world, mode, pad_heads, microbatches, mesh=MESH):
-    """(Analyzer of one sharded step, its argument bytes) on a fake world."""
+def _port(fake_world, mode, pad_heads, microbatches, mesh=MESH, cfg=None, batch=B, seq=S):
+    """(Analyzer of one sharded step, its argument bytes) on a fake world,
+    of the reduced yi-34b of ``OVERRIDES`` unless ``cfg`` is given."""
     fake_world(mesh[0] * mesh[1])
     dm = make_host_mesh(model_parallel=mesh[1])
-    cfg = dataclasses.replace(configs.reduced_config("yi-34b", **OVERRIDES), pad_heads=pad_heads)
-    batch = input_specs(cfg, B, S, mode)
+    cfg = dataclasses.replace(cfg or configs.reduced_config("yi-34b", **OVERRIDES),
+                              pad_heads=pad_heads)
+    batch = input_specs(cfg, batch, seq, mode)
     if mode == "train":
         step, args = steps.sharded_train_step(cfg, adamw.AdamWConfig(), dm, batch,
                                               microbatches=microbatches)
@@ -250,6 +252,48 @@ def test_one_device_mesh_moves_nothing(reference, fake_world, mode, pad_heads, m
     assert sum(ref["collective_bytes"].values()) == 0
     assert arg_bytes == ref["argument_bytes"]
     assert counted.matmul_total() == pytest.approx(ref["dots"], rel=1e-12)
+
+
+# -- the windowed KV band -------------------------------------------------------------
+
+# the reduced mixtral (window 16) at a sequence of two q-chunks of 512: each
+# chunk scores the band of 16 + 512 keys, in both packages
+WINDOWED = dict(arch="mixtral-8x7b", batch=2, seq=1024)
+
+
+@pytest.fixture(scope="module")
+def windowed_reference():
+    cases = [dict(mode=m, pad_heads=0, microbatches=1, mesh=[1, 1], **WINDOWED)
+             for m in ("prefill", "train")]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([str(SRC), str(TESTS)]),
+               JAX_PLATFORMS="cpu", **ONE_THREAD_ENV)
+    env.pop("REPRO_NO_KV_SLICE", None)
+    out = subprocess.run([sys.executable, str(TESTS / "_reference_steps.py"), json.dumps(cases)],
+                         env=env, capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    return {r["mode"]: r for r in json.loads(out.stdout.strip().splitlines()[-1])}
+
+
+@pytest.mark.parametrize("mode", ["prefill", "train"])
+def test_windowed_band_counts_the_references_dots(windowed_reference, fake_world, mode):
+    """The counted matmul flops of a windowed arch past one q-chunk equal
+    the reference's compiled dots, whose attention scores only the band;
+    with all 1024 keys scored per chunk the port would count the products
+    of the other 496 keys of every query row on top."""
+    ref = windowed_reference[mode]
+    cfg = configs.reduced_config(WINDOWED["arch"])
+    counted, _, _ = _port(fake_world, mode, 0, 1, mesh=(1, 1), cfg=cfg,
+                          batch=WINDOWED["batch"], seq=WINDOWED["seq"])
+    port = counted.matmul_total()
+    S, band = WINDOWED["seq"], cfg.window + 512
+    products = {"prefill": 2, "train": 8}[mode]     # as _attention counts them
+    outside = cfg.n_layers * products * 2 * WINDOWED["batch"] * cfg.n_heads * S \
+        * (S - band) * cfg.d_head
+    print(f"\n[band] {mode}, {WINDOWED}: port matmul {port:.6e}, reference dots "
+          f"{ref['dots']:.6e} (ratio {port / ref['dots']:.6f}); keys outside the band "
+          f"would add {outside:.6e}")
+    assert cfg.window == 16 and S > 512 + cfg.window and S % 512 == 0
+    assert port == pytest.approx(ref["dots"], rel=1e-12)
 
 
 # -- outside a sharding context ------------------------------------------------------

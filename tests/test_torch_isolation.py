@@ -1,6 +1,7 @@
 """The port stands alone: importing ``repro_torch`` (every submodule) loads
-neither jax nor any module of the JAX package, and no source file of the
-port or ``chip_smoke.py`` imports them."""
+neither jax, ml_dtypes nor any module of the JAX package, and no source
+file of the port or ``chip_smoke.py`` imports them (a bfloat16 checkpoint
+leaf is numpy ``V2``, no ml_dtypes type)."""
 import ast
 import json
 import os
@@ -30,7 +31,7 @@ print(json.dumps({"modules": names, "loaded": sorted(sys.modules)}))
 
 def _foreign(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "repro", "triton")
+    return top in ("jax", "jaxlib", "ml_dtypes", "repro", "triton")
 
 
 def test_import_loads_no_jax_and_no_reference():

@@ -6,7 +6,9 @@ numpy seed.  ``loss_fn`` and every gradient are held against
 ``jax.value_and_grad(repro.models.model.loss_fn)`` on the reduced yi-34b,
 rwkv6-3b, recurrentgemma-9b, mixtral-8x7b (MoE with drops, window) and
 gemma2-27b (sandwich norms, softcaps), all with fp32 parameters (the
-reduced mixtral's are bf16, which ``to_jax_params`` refuses): at fp32 compute the loss to rtol 1e-5 and
+reduced mixtral's are bf16; ``to_jax_params`` carries bf16 as numpy ``V2``,
+the reference's bits, which ``test_bf16_parameters_refuse_numpy`` holds):
+at fp32 compute the loss to rtol 1e-5 and
 the gradients to rtol 1e-4 with atol 1e-6 * max|g_ref|; at bf16 compute
 both to 2e-2 (the kernel tests' bf16 tolerance, the atol scaled by
 max|g_ref|).
@@ -266,9 +268,21 @@ def test_to_jax_params_inverts_from_jax_params(arch):
 
 
 def test_bf16_parameters_refuse_numpy():
-    cfg = reduced_config("yi-34b", param_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-        to_jax_params(tmodel.Model(cfg, device="cpu"))
+    """No longer refused: bf16 parameters go to numpy as ``V2`` holding the
+    reference's bf16 bits, and come back from them bit for bit."""
+    kw = dict(param_dtype="bfloat16")
+    jcfg, cfg = jreduced_config("yi-34b", **kw), reduced_config("yi-34b", **kw)
+    flat = flatten(jinit_params(jcfg, 0))
+    model = from_jax_params(cfg, flat, device="cpu")
+    back = to_jax_params(model)
+    assert set(back) == set(flat)
+    for key, arr in flat.items():
+        assert arr.dtype.name == "bfloat16" and back[key].dtype == np.dtype("V2"), key
+        assert back[key].tobytes() == arr.tobytes(), key
+    again = from_jax_params(cfg, back, device="cpu")
+    for (name, p), q in zip(model.named_parameters(), again.parameters()):
+        assert q.dtype == torch.bfloat16 and torch.equal(p.view(torch.int16),
+                                                         q.view(torch.int16)), name
 
 
 @pytest.mark.parametrize("microbatches", [1, 2])

@@ -6,8 +6,8 @@ bottleneck appearing in the window that contains it, the simulated pod's
 rebalance firing, the partitioned pipeline's reshard actuation, ``--costs
 hlo`` and ``--schema tpu`` printing the counted step's ``[costs]`` line
 (no flag refused for want of a port), the six families of slice 7
-training a few steps, and the refusal, before the first step, to
-checkpoint a run with bf16 parameters (mixtral's).  The analysis side's
+training a few steps, and mixtral's bf16 parameters with the fp32 master
+checkpointed and resumed bit for bit.  The analysis side's
 flags run as the reference's: ``--pod-gather`` delivers every window,
 ``--chaos-seed`` leaves the reference's audit lines on the same command
 line, and ``--diagnosis learned`` diagnoses each window as the reference's
@@ -82,13 +82,29 @@ def test_new_families_train(arch):
 
 
 def test_bf16_moe_checkpoint_is_refused_before_training(tmp_path):
-    """mixtral's parameters are bf16, which a checkpoint cannot hold yet:
-    the trainer raises the checkpoint's NotImplementedError before its
-    first step and writes nothing."""
-    with pytest.raises(NotImplementedError, match="bfloat16 checkpoints are not ported"):
-        run(["--arch", "mixtral-8x7b", "--steps", "2", *SMALL, "--ckpt-dir",
-             str(tmp_path / "ck"), "--ckpt-every", "1"])
-    assert not (tmp_path / "ck").exists()
+    """No longer refused: mixtral checkpoints and resumes.  Its bf16
+    parameters, fp32 master and fp32 moments are saved at step 2 (bf16 as
+    ``V2``), ``--resume`` takes the run to step 4, and the losses and the
+    final state are those of an uninterrupted 4-step run bit for bit.  At
+    seq 640 the attention takes the windowed KV band (two q-chunks)."""
+    base = ["--arch", "mixtral-8x7b", *SMALL, "--batch", "1", "--seq", "640",
+            "--analyze-every", "2"]
+    first = run([*base, "--steps", "2", "--ckpt-dir", str(tmp_path), "--ckpt-every", "2"])
+    resumed = run([*base, "--steps", "4", "--ckpt-dir", str(tmp_path), "--resume"])
+    whole = run([*base, "--steps", "4"])
+    assert resumed.start_step == 2 and ckpt.latest_step(tmp_path) == 4
+    assert first.losses + resumed.losses == whole.losses
+    assert first.grad_norms + resumed.grad_norms == whole.grad_norms
+    got = dict(resumed.state["params"].named_parameters())
+    want = dict(whole.state["params"].named_parameters())
+    assert {p.dtype for p in got.values()} == {torch.bfloat16}
+    pairs = [(got, want)] + [(resumed.state["opt"][k], whole.state["opt"][k])
+                             for k in ("m", "v", "master")]
+    for a, b in pairs:
+        assert set(a) == set(b)
+        for name in a:
+            assert a[name].dtype == b[name].dtype and torch.equal(a[name], b[name]), name
+    assert torch.equal(resumed.state["opt"]["step"], whole.state["opt"]["step"])
 
 
 def test_resume_continues_at_the_saved_step(tmp_path, capsys):
