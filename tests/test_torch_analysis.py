@@ -148,3 +148,20 @@ def test_wire_snapshot_crosses_packages():
     back = jperfdbg.WindowSnapshot.from_bytes(blob, jt)
     assert back.to_bytes() == blob
     assert tperfdbg.WindowSnapshot.from_bytes(back.to_bytes(), tt).to_bytes() == blob
+
+
+def test_cluster_agrees_at_row_order_counterexample():
+    """m=7, n=2, seed=87130 is where ``test_clustering.py``'s row-order
+    invariance property once failed.  On both row orders the port's
+    ``cluster``, the reference's and the reference's loop oracle
+    ``cluster_reference`` give the same result, so what the property saw
+    there is the algorithm's, not a fault of the port."""
+    from repro.core._reference import cluster_reference
+    from repro.core.optics import cluster
+    from repro_torch.core.optics import cluster as port_cluster
+
+    rng = np.random.default_rng(87130)
+    perf = rng.uniform(0, 10, size=(7, 2))
+    for rows in (perf, perf[rng.permutation(7)]):
+        results = [f(rows) for f in (port_cluster, cluster, cluster_reference)]
+        assert len({(r.labels, r.clusters, r.isolated) for r in results}) == 1
