@@ -29,7 +29,13 @@ script.  Phases, each raising on failure (nothing is caught):
          (RG-LRU scan, equal to the plain loop bit for bit, also at
          recurrentgemma-9b's serving shape; each case prints the kernel its shape chooses:
          ``"staged"``, a and b staged by TMA, for S > 1 with W % 4 == 0,
-         ``"simple"`` otherwise; from h0, S = 1, ragged S and W);
+         ``"simple"`` otherwise; from h0, S = 1, ragged S and W) and K4
+         (the Mamba-2 decode step: 3 consecutive steps at Nemotron-H's
+         decode shape, batch 32, 256 heads of 64 in 8 groups of state 256,
+         bf16, z, xbc and dt strided slices of one in-projection row, and at
+         batch 3 in fp32: the output every step, the fp32 SSM state to 1e-4
+         and the conv state bit for bit; then its time at the decode shape,
+         its bound and the plain form's);
   B      the serving path, ``repro_torch.launch.serve.serve`` with all
          policies and async windowed analysis, bf16 weights drawn from a
          seed, 3 rounds x 16 tokens, on three models in turn (each freed
@@ -42,8 +48,13 @@ script.  Phases, each raising on failure (nothing is caught):
              batch 2, prompt 4096 (longer than its 2048 window, so the window
              mask and the ring-buffer cache do real work): K2 once per rec
              layer per prefill and decode step, K1 once per local layer per
-             prefill.
-         Every kernel's launch count is set to 0 just before a model is
+             prefill;
+           nemotron-h-47b at published widths, layers 49-60 of its
+             published pattern (2 attention, 5 Mamba-2, 5 MLP layers),
+             batch 32, prompt 1020 (the benchmark cell's): K1 once per
+             attention layer per prefill, K4 once per Mamba-2 layer per
+             decode step.
+         Every kernel's launch count (K1-K4) is set to 0 just before a model is
          served and read just after, every K1 launch must have gone
          through ``"wgmma"``, and K2's launches split by kernel: the
          prefill's on ``"staged"``, the decode steps' on ``"simple"``; the
@@ -228,6 +239,14 @@ MX_H, MX_KH = 32, 8              # mixtral-8x7b attention
 # phase F and whisper's K1 shapes: batch, prompt, 20 heads of 64, 1500 frames
 WH_BATCH, WH_PROMPT, WH_H, WH_DH, WH_FRAMES = 16, 224, 20, 64, 1500
 GRAPH_CALLS = 50                 # K2 or K3 launches per CUDA graph at the decode shape
+# Nemotron-H-47B: K4 at the Mamba-2 decode shape of the benchmark's cell
+# (batch 32; 256 heads of 64 in 8 groups of state 256), and phase B's cut
+# of the published pattern: layers 49-60 (the cell's first twelve), 2
+# attention, 5 Mamba-2 and 5 MLP layers, served at the cell's batch and prompt
+NH_BATCH, NH_PROMPT, NH_H, NH_P, NH_G, NH_N = 32, 1020, 256, 64, 8, 256
+NH_LAYERS = slice(49, 61)
+K4_STEPS = 3                     # consecutive state updates per phase A case
+K4_TOL = {"bfloat16": dict(rtol=1e-2, atol=1e-2), "float32": dict(rtol=1e-4, atol=1e-4)}
 TRAIN_LAYERS, TRAIN_FALLBACK_LAYERS = 4, 2
 TRAIN_ARGV = ["--arch", "yi-34b", "--full-width", "--batch", "2", "--seq", "2048",
               "--steps", "6", "--analyze-every", "3", "--policies", "all"]
@@ -501,6 +520,90 @@ def phase_a_rglru(torch, ops, k2):
     return err
 
 
+def k4_case(torch, k4, batch, dtype, seed):
+    """K4's arguments at Nemotron-H's widths as the decode step passes them
+    (the fp32 state, the conv state, the layer's weights) and a function
+    that draws the next token's in-projection row and returns z, xbc and
+    dt as its column slices, with the row's stride."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rnd(*shape, std=1.0):
+        return (std * torch.randn(shape, generator=g, device="cuda")).to(dtype)
+
+    H, P, G, N = NH_H, NH_P, NH_G, NH_N
+    conv = H * P + 2 * G * N
+    state = torch.randn((batch, H, P, N), generator=g, device="cuda")
+    weights = dict(conv_w=rnd(conv, k4.TAPS, std=0.5), conv_b=rnd(conv, std=0.1),
+                   dt_bias=rnd(H), A_log=rnd(H, std=2.0), D=rnd(H),
+                   norm_scale=rnd(H * P, std=0.1))
+
+    def row():
+        z, xbc, dt = rnd(batch, H * P + conv + H).split([H * P, conv, H], dim=-1)
+        return dict(z=z, xbc=xbc, dt=dt)
+
+    return state, rnd(batch, conv, k4.TAPS - 1), weights, row
+
+
+def phase_a_ssm_state_update(torch, ops, k4, rates, card):
+    """K4 vs ``ops.ssm_state_update_ref``: K4_STEPS consecutive decode steps
+    from the same states, z, xbc and dt strided slices of one row, at the
+    cell's decode shape in bf16 and at batch 3 in fp32; the output every
+    step, the SSM state (fp32, 1e-4) and the conv state (bit for bit) after
+    the last.  Then its CUDA-event time at the decode shape, its bound and
+    the plain form's; returns the record."""
+    fp32_peak, bw_peak = rates
+    err = None
+    for i, (name, batch, dt) in enumerate((("decode nemotron-h", NH_BATCH, "bfloat16"),
+                                           ("batch 3", 3, "float32"))):
+        state, cstate, w, row = k4_case(torch, k4, batch, getattr(torch, dt), seed=400 + i)
+        plain_state, plain_cstate, start = state.clone(), cstate.clone(), state.clone()
+        eo = 0.0
+        for _ in range(K4_STEPS):
+            r = row()
+            before = k4.ssm_state_update_kernel.launches
+            got = k4.ssm_state_update_kernel(state, cstate, **r, **w)
+            torch.cuda.synchronize()
+            if k4.ssm_state_update_kernel.launches != before + 1:
+                raise RuntimeError(f"K4 {name}: no launch counted")
+            want = ops.ssm_state_update_ref(plain_state, plain_cstate, **r, **w)
+            eo = max(eo, (got.float() - want.float()).abs().max().item())
+            torch.testing.assert_close(got.float(), want.float(), **K4_TOL[dt])
+        es = (state - plain_state).abs().max().item()
+        moved = (plain_state - start).abs().max().item()
+        print(f"[A] K4 {name:17s} B={batch} H={NH_H} P={NH_P} G={NH_G} N={NH_N} {dt:8s} "
+              f"{K4_STEPS} steps: out max|err|={eo:.3e} tol={K4_TOL[dt]}; state "
+              f"max|err|={es:.3e} tol={K4_TOL['float32']} (the steps moved it by up to "
+              f"{moved:.3e}); conv state bit for bit: {torch.equal(cstate, plain_cstate)}")
+        torch.testing.assert_close(state, plain_state, **K4_TOL["float32"])
+        if not torch.equal(cstate, plain_cstate):
+            raise RuntimeError(f"K4 {name}: the conv state differs from the plain form's")
+        if batch == NH_BATCH:
+            err = eo
+        del state, cstate, w, plain_state, plain_cstate, start, got, want
+        free()
+
+    state, cstate, w, row = k4_case(torch, k4, NH_BATCH, torch.bfloat16, seed=402)
+    r = row()
+    ms = cuda_ms(lambda: k4.ssm_state_update_kernel(state, cstate, **r, **w), iters=20)
+    plain_ms = cuda_ms(lambda: ops.ssm_state_update_ref(state, cstate, **r, **w), iters=5,
+                       warmup=1)
+    conv = NH_H * NH_P + 2 * NH_G * NH_N
+    flops = 4 * NH_BATCH * NH_H * NH_P * NH_N
+    nbytes = (2 * state.numel() * 4                  # the state read and written, fp32
+              + NH_BATCH * (conv + NH_H * NH_P) * 4  # x, B, C read; y written (fp32)
+              + r["dt"].numel() * 2)                 # dt (bf16)
+    b_ms, b_by = bound(flops, nbytes, fp32_peak, bw_peak)
+    print(f"[C] K4 ssm_state_update decode B={NH_BATCH} H={NH_H} P={NH_P} G={NH_G} "
+          f"N={NH_N} bf16: {ms:.4f} ms/call (conv step, state update, gated norm; "
+          f"{nbytes / ms / 1e9:.3f} TB/s); bound {b_ms:.4f} ms ({b_by}; {nbytes / 1e9:.3f} GB "
+          f"at {bw_peak / 1e12:.2f} TB/s; {flops / 1e9:.2f} GFLOP); plain {plain_ms:.4f} ms; "
+          f"library: no single PyTorch call | card: {card}")
+    del state, cstate, w, r
+    free()
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+                max_abs_err=err)
+
+
 def check_logits(torch, tag, got, plain):
     """Kernel-path logits against the plain forms' within LOGITS_TOL, the
     absolute part scaled by the logits' rms where it exceeds 1."""
@@ -599,6 +702,28 @@ def serve_model(torch, cfg, batch, prompt, counters, expected, phase="B", patche
     return out
 
 
+def nemotron_h_cut(full):
+    """Nemotron-H-47B at its published widths, layers NH_LAYERS of its
+    published pattern, bf16 weights."""
+    kinds = full.block_pattern[NH_LAYERS]
+    return dataclasses.replace(full, n_layers=len(kinds), block_pattern=kinds,
+                               param_dtype="bfloat16")
+
+
+def serve_nemotron_h(torch, cfg, counters):
+    """B for the hybrid stack: served as the others at the cell's batch
+    and prompt; K1 once per attention layer per prefill, K4 once per
+    Mamba-2 layer per decode step (the prefill runs the chunked SSD), K2
+    and K3 never."""
+    kinds = cfg.layer_kinds
+    print(f"[B] {cfg.name}: layers {NH_LAYERS.start}-{NH_LAYERS.stop - 1} of the published "
+          f"pattern, published widths (state {cfg.ssm_heads} heads x {cfg.ssm_head_dim} x "
+          f"{cfg.ssm_state}, {cfg.ssm_groups} groups)")
+    return serve_model(torch, cfg, NH_BATCH, NH_PROMPT, counters, {
+        "flash_attention": kinds.count("attn"), "rglru_scan": 0, "wkv6": 0,
+        "ssm_state_update": kinds.count("mamba2") * ROUNDS * TOKENS})
+
+
 def phase_e(torch, counters):
     """E: this slice's families through ``serve`` at published widths, each
     freed before the next; K1 once per attention layer per prefill, K2 and
@@ -614,7 +739,8 @@ def phase_e(torch, counters):
         attn_layers = sum(kind not in ("rec", "rwkv") for kind in cfg.layer_kinds)
         runs[cfg.name] = serve_model(
             torch, cfg, batch, prompt, counters,
-            {"flash_attention": attn_layers, "rglru_scan": 0, "wkv6": 0}, phase="E",
+            {"flash_attention": attn_layers, "rglru_scan": 0, "wkv6": 0,
+             "ssm_state_update": 0}, phase="E",
             patches=cfg.frontend == "vision_stub")
     return runs
 
@@ -634,8 +760,8 @@ def phase_f(torch, counters):
     print(f"[F] {cfg.name}: {cfg.encoder_layers} encoder + {cfg.n_layers} decoder layers "
           f"(full depth), published widths, {WH_FRAMES} frames; K1 expected {k1} per prefill")
     return {cfg.name: serve_model(torch, cfg, WH_BATCH, WH_PROMPT, counters,
-                                  {"flash_attention": k1, "rglru_scan": 0, "wkv6": 0},
-                                  phase="F")}
+                                  {"flash_attention": k1, "rglru_scan": 0, "wkv6": 0,
+                                   "ssm_state_update": 0}, phase="F")}
 
 
 # Library yardsticks of K1, each ``(label, prepare)`` with ``prepare(q, k,
@@ -1515,6 +1641,7 @@ def main() -> int:
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru_scan as k2
+    from repro_torch.kernels import ssm_state_update as k4
     from repro_torch.kernels import wkv6 as k3
 
     dev = resolve_device("cuda")
@@ -1534,33 +1661,37 @@ def main() -> int:
                 print(f"[build] {name}: {line.strip()}")
 
     # -- A: kernels vs plain -----------------------------------------------------
+    peak_name, (bf16_peak, fp32_peak, bw_peak) = peaks(device_kind)
     phase_a_attention(torch, ops, fa)
     k3_err = phase_a_wkv6(torch, ops, k3)
     k2_err = phase_a_rglru(torch, ops, k2)
+    rec_k4 = phase_a_ssm_state_update(torch, ops, k4, (fp32_peak, bw_peak), card)
     print(f"[A] passed in {time.perf_counter() - t_start:.1f} s since start")
 
     # -- B: the serving paths ------------------------------------------------------
     counters = {"flash_attention": fa.flash_attention, "rglru_scan": k2.rglru_scan_kernel,
-                "wkv6": k3.wkv6_kernel}
+                "wkv6": k3.wkv6_kernel, "ssm_state_update": k4.ssm_state_update_kernel}
     steps = 1 + ROUNDS * TOKENS          # the prefill and every decode step
     bf16 = dict(param_dtype="bfloat16")
     yi = dataclasses.replace(get_config("yi-34b"), n_layers=YI_LAYERS, **bf16)
     rwkv = dataclasses.replace(get_config("rwkv6-3b"), **bf16)
     rg = dataclasses.replace(get_config("recurrentgemma-9b"), **bf16)
+    nh = nemotron_h_cut(get_config("nemotron-h-47b"))
     runs = {
         yi.name: serve_model(torch, yi, YI_BATCH, YI_PROMPT, counters, {
-            "flash_attention": YI_LAYERS, "rglru_scan": 0, "wkv6": 0}),
+            "flash_attention": YI_LAYERS, "rglru_scan": 0, "wkv6": 0, "ssm_state_update": 0}),
         rwkv.name: serve_model(torch, rwkv, RWKV_BATCH, RWKV_PROMPT, counters, {
             "flash_attention": 0, "rglru_scan": 0,
-            "wkv6": rwkv.layer_kinds.count("rwkv") * steps}),
+            "wkv6": rwkv.layer_kinds.count("rwkv") * steps, "ssm_state_update": 0}),
         rg.name: serve_model(torch, rg, RG_BATCH, RG_PROMPT, counters, {
             "flash_attention": rg.layer_kinds.count("local"),
-            "rglru_scan": rg.layer_kinds.count("rec") * steps, "wkv6": 0}),
+            "rglru_scan": rg.layer_kinds.count("rec") * steps, "wkv6": 0,
+            "ssm_state_update": 0}),
+        nh.name: serve_nemotron_h(torch, nh, counters),
     }
     print(f"[B] passed in {time.perf_counter() - t_start:.1f} s since start")
 
-    # -- C: timings at the serving shapes ----------------------------------------------
-    peak_name, (bf16_peak, fp32_peak, bw_peak) = peaks(device_kind)
+    # -- C: timings at the serving shapes (K4's in phase A) ----------------------------
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     rec = {}
 
@@ -1832,6 +1963,10 @@ def main() -> int:
              replaces="src/repro/kernels/wkv6.py:27",
              launches=launches("wkv6"), launches_by_path=by_path("wkv6"),
              max_abs_err=k3_err, **rec["wkv6"]),
+        dict(name="ssm_state_update", route="cuda",
+             source="src/repro_torch/csrc/ssm_state_update.cu", replaces=None,
+             launches=launches("ssm_state_update"),
+             launches_by_path=by_path("ssm_state_update"), **rec_k4),
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -12,8 +12,9 @@ import torch
 
 from . import ref
 from .flash_attention import flash_attention
-from .ref import flash_attention_ref, rglru_scan_ref
+from .ref import flash_attention_ref, rglru_scan_ref, ssm_state_update_ref
 from .rglru_scan import rglru_scan_kernel
+from .ssm_state_update import ssm_state_update_kernel
 from .wkv6 import wkv6_kernel
 
 
@@ -99,3 +100,19 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor,
     if a.device.type == "cpu":
         return rglru_scan_ref(a, b, h0)
     raise ValueError(f"no rglru_scan kernel for device {a.device}")
+
+
+def ssm_state_update(state: torch.Tensor, conv_state: torch.Tensor, z: torch.Tensor,
+                     xbc: torch.Tensor, dt: torch.Tensor, conv_w: torch.Tensor,
+                     conv_b: torch.Tensor, dt_bias: torch.Tensor, A_log: torch.Tensor,
+                     D: torch.Tensor, norm_scale: torch.Tensor,
+                     eps: float = 1e-6) -> torch.Tensor:
+    """A Mamba-2 layer's decode step between its projections (the conv
+    step, the state update, the gated norm), both states in place; shapes
+    as :func:`ssm_state_update_ref`.  Returns (batch, H P) in z's dtype."""
+    args = (state, conv_state, z, xbc, dt, conv_w, conv_b, dt_bias, A_log, D, norm_scale, eps)
+    if state.device.type == "cuda":
+        return ssm_state_update_kernel(*args)
+    if state.device.type == "cpu":
+        return ssm_state_update_ref(*args)
+    raise ValueError(f"no ssm_state_update kernel for device {state.device}")

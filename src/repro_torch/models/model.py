@@ -1,9 +1,11 @@
 """Model API of the port: parameters, init, loss, prefill and decode.
 
 Counterpart of ``repro/models/model.py`` for decoder-only models (dense,
-MoE, hybrid RG-LRU and RWKV-6 stacks), the vision stub (pixtral: the
-projected patch embeddings replace the first ``n_patches`` positions) and
-the encoder-decoder with the audio stub (whisper: precomputed frame
+MoE, hybrid RG-LRU and RWKV-6 stacks, and the port's own hybrid Mamba-2
+stack, ``mamba2.HybridConfig``, which adds no position embedding), the
+vision stub (pixtral: the projected patch embeddings replace the first
+``n_patches`` positions) and the encoder-decoder with the audio stub
+(whisper: precomputed frame
 embeddings ``(B, encoder_seq, d_model)`` go through ``frame_proj``,
 sinusoidal positions and the encoder stack, whose output the decoder's
 cross-attention reads).  ``forward`` / ``chunked_loss`` / ``loss_fn`` are
@@ -28,6 +30,7 @@ from ..runtime import constrain, scope
 from .config import ModelConfig
 from .layers import (Embed, Linear, Norm, apply_embed, apply_linear,
                      apply_logits, apply_norm, sinusoidal, torch_dtype)
+from .mamba2 import HybridConfig
 from .transformer import (KERNELS, Block, Cache, Kernels, init_cache,
                           run_stack, run_stack_decode, run_stack_prefill)
 
@@ -96,7 +99,7 @@ class Model(nn.Module):
         cross-attention reads the prefill's encoder K/V from it."""
         cfg = self.cfg
         x = apply_embed(self.embed, tokens, cfg)
-        if not cfg.use_rope:
+        if sinusoidal_positions(cfg):
             x = x + _sin_at(pos, cfg.d_model, x.device).to(x.dtype)[None, None]
         x, cache = run_stack_decode(self.layers, cache, x, cfg, pos, kernels)
         x = apply_norm(self.final_norm, x, cfg.norm)
@@ -132,6 +135,13 @@ def input_specs(cfg: ModelConfig, batch: int, seq: int,
     raise ValueError(mode)
 
 
+def sinusoidal_positions(cfg: ModelConfig) -> bool:
+    """Whether the embedding adds sinusoidal positions: where the attention
+    takes no rope (whisper, rwkv6), as the reference does; never in a
+    hybrid Mamba-2 stack, whose attention has no position embedding."""
+    return not cfg.use_rope and not isinstance(cfg, HybridConfig)
+
+
 @scope("embed")
 def _embed_inputs(model: Model, tokens: torch.Tensor,
                   patches: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -140,7 +150,7 @@ def _embed_inputs(model: Model, tokens: torch.Tensor,
     if cfg.frontend == "vision_stub" and patches is not None:
         pe = apply_linear(model.patch_proj, patches.to(x.dtype))
         x = torch.cat([pe, x[:, cfg.n_patches:]], dim=1)
-    if not cfg.use_rope:
+    if sinusoidal_positions(cfg):
         x = x + sinusoidal(tokens.shape[1], cfg.d_model,
                            device=x.device).to(x.dtype)[None]
     return x

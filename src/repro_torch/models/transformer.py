@@ -1,5 +1,7 @@
 """Transformer stack of the port: the ``"global"``, ``"local"``,
-``"moe_global"``, ``"moe_local"``, ``"rec"`` and ``"rwkv"`` blocks.
+``"moe_global"``, ``"moe_local"``, ``"rec"`` and ``"rwkv"`` blocks, and the
+single-mixer layers of a hybrid stack (``models.mamba2.HybridConfig``:
+``"mamba2"``, ``"attn"``, ``"mlp"``, each ``x + mixer(ln1(x))``).
 
 Counterpart of ``repro/models/transformer.py``: the training forward
 (``run_stack``, under autograd with per-layer rematerialization), prefill
@@ -25,7 +27,12 @@ sequential one for a token, the associative RG-LRU scan) for the sharded
 steps that ``launch.dryrun`` counts on the ``meta`` device, where
 ``kernels.ops`` raises.  The serving path's prefill and its
 encoder take the bundle's attention for every attention (self, cross and
-the encoder's); decode attends with the plain ``mha_decode``.  Training
+the encoder's); decode attends with the plain ``mha_decode``.  A Mamba-2
+layer's prefill runs the chunked SSD scan in plain torch; its decode step
+hands all between its projections to the bundle's ``ssm_state_update``
+(K4 on the card).  Two kinds of state then live in one cache: K/V
+buffers in the attention layers, a conv state and an fp32 SSM state in
+the Mamba-2 layers (an MLP layer's dict is empty).  Training
 takes no bundle: it runs the plain forms the reference trains with
 (``mha``, ``wkv6_chunked``, the associative ``rglru_scan``), since the
 kernels have no backward.
@@ -41,19 +48,23 @@ from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..kernels import ops
+from ..kernels.ref import ssm_state_update_ref
 from ..runtime import constrain, on_shards, placements, scope
 from .config import ModelConfig
 from .layers import (MLP, Attention, Norm, apply_linear, apply_mlp,
                      apply_norm, attention_block, attention_decode,
                      cross_attention_decode, merge_heads, mha, rope,
                      split_heads, torch_dtype)
+from .mamba2 import (MIXER_KINDS, Mamba2, apply_mamba2, mamba2_cache_shape,
+                     mamba2_decode)
 from .moe import MoE, apply_moe
 from .rglru import (RGLRU, apply_rglru, init_rglru_state, rglru_decode,
                     rglru_scan)
 from .rwkv6 import (TimeMix, apply_channel_mix, apply_time_mix,
                     init_rwkv6_state, wkv6_plain, wkv6_sequential)
 
-PORTED_KINDS = ("global", "local", "moe_global", "moe_local", "rec", "rwkv")
+PORTED_KINDS = ("global", "local", "moe_global", "moe_local", "rec", "rwkv",
+                *MIXER_KINDS)
 
 Cache = List[Dict[str, torch.Tensor]]   # one dict of state tensors per layer
 AttentionFn = Callable[..., torch.Tensor]
@@ -62,17 +73,21 @@ AttentionFn = Callable[..., torch.Tensor]
 class Kernels(NamedTuple):
     """The functions a block's kernels stand for: causal GQA attention on
     (B, S, H, dh) / (B, S, K, dh); the WKV6 recurrence ``(r, k, v, logw, u,
-    s0) -> (y, s_final)``; the RG-LRU scan ``(a, b, h0) -> h``."""
+    s0) -> (y, s_final)``; the RG-LRU scan ``(a, b, h0) -> h``; a Mamba-2
+    layer's decode step between its projections (``kernels.ops.
+    ssm_state_update``'s arguments; the conv and SSM states in place;
+    ``kernels.ops.ssm_state_update`` unless given)."""
     attention: AttentionFn
     wkv6: Callable
     rglru_scan: Callable
+    ssm_state_update: Callable = ops.ssm_state_update
 
 
-KERNELS = Kernels(ops.attention, ops.wkv6, ops.rglru_scan)
-PLAIN = Kernels(mha, wkv6_sequential, rglru_scan)
+KERNELS = Kernels(ops.attention, ops.wkv6, ops.rglru_scan, ops.ssm_state_update)
+PLAIN = Kernels(mha, wkv6_sequential, rglru_scan, ssm_state_update_ref)
 # the forms the reference's compiled steps run (its models reach no Pallas
 # kernel): what a step counted on the meta device, the dry-run's, runs
-DRYRUN = Kernels(mha, wkv6_plain, rglru_scan)
+DRYRUN = Kernels(mha, wkv6_plain, rglru_scan, ssm_state_update_ref)
 
 
 def check_kind(kind: str) -> None:
@@ -103,12 +118,13 @@ def group_meta(cfg: ModelConfig, n_layers: Optional[int] = None
 class Block(nn.Module):
     """Pre-norm block: attention + MLP (``"global"``, ``"local"``),
     attention + MoE (``"moe_global"``, ``"moe_local"``), RG-LRU + MLP
-    (``"rec"``), or RWKV6 time-mix + channel-mix (``"rwkv"``).  With
-    ``cfg.post_norm`` every block holds ``post1`` and ``post2``, as the
-    reference's ``block_spec`` does; the attention blocks apply them.  With
-    ``cross`` an attention block also holds the cross-attention ``cross``
-    and ``ln_cross`` (an encoder-decoder's decoder blocks).  On the card
-    unless ``device`` is ``"cpu"``."""
+    (``"rec"``), RWKV6 time-mix + channel-mix (``"rwkv"``), or one mixer on
+    ``ln1`` alone: ``mamba`` (``"mamba2"``), ``attn`` (``"attn"``), ``mlp``
+    (``"mlp"``).  With ``cfg.post_norm`` every block holds ``post1`` and
+    ``post2``, as the reference's ``block_spec`` does; the attention blocks
+    apply them.  With ``cross`` an attention block also holds the
+    cross-attention ``cross`` and ``ln_cross`` (an encoder-decoder's decoder
+    blocks).  On the card unless ``device`` is ``"cpu"``."""
 
     def __init__(self, cfg: ModelConfig, kind: str,
                  device: Union[str, torch.device] = "cuda", cross: bool = False):
@@ -118,6 +134,14 @@ class Block(nn.Module):
         dtype = torch_dtype(cfg.param_dtype)
         self.kind = kind
         self.ln1 = Norm(cfg.d_model, cfg.norm, dtype, device)
+        if kind in MIXER_KINDS:
+            if kind == "mamba2":
+                self.mamba = Mamba2(cfg, dtype, device)
+            elif kind == "attn":
+                self.attn = Attention(cfg, dtype, device)
+            else:
+                self.mlp = MLP(cfg, dtype, device)
+            return
         self.ln2 = Norm(cfg.d_model, cfg.norm, dtype, device)
         if cfg.post_norm:
             self.post1 = Norm(cfg.d_model, cfg.norm, dtype, device)
@@ -165,6 +189,11 @@ def block_forward(kind: str, p: Block, x: torch.Tensor, cfg: ModelConfig,
     if kernels is None:
         raise ValueError("a prefill (collect_cache) runs through a Kernels bundle")
     h_in = apply_norm(p.ln1, x, cfg.norm)
+    if kind == "mamba2":
+        h, cache = apply_mamba2(p.mamba, h_in, cfg, return_state=True)
+        return x + h, cache
+    if kind == "mlp":
+        return x + apply_mlp(p.mlp, h_in, cfg), {}
     if kind == "rwkv":
         h, st = apply_time_mix(p.tm, h_in, cfg, return_state=True,
                                wkv=kernels.wkv6)
@@ -180,6 +209,8 @@ def block_forward(kind: str, p: Block, x: torch.Tensor, cfg: ModelConfig,
     h, cache = _attention_with_cache(p.attn, h_in, cfg, positions,
                                      _window(cfg, kind), collect_cache,
                                      kernels.attention)
+    if kind == "attn":
+        return x + h, cache
 
     def cross(hc: torch.Tensor) -> torch.Tensor:
         y, cache["cross_k"], cache["cross_v"] = attention_block(
@@ -224,6 +255,10 @@ def _forward_block(kind: str, p: Block, x: torch.Tensor, cfg: ModelConfig,
     RG-LRU scan) and ``attention`` for every attention: jnp-style ``mha``
     in training, a kernel for the encoder on the serving path."""
     h_in = apply_norm(p.ln1, x, cfg.norm)
+    if kind == "mamba2":
+        return x + apply_mamba2(p.mamba, h_in, cfg)
+    if kind == "mlp":
+        return x + apply_mlp(p.mlp, h_in, cfg)
     if kind == "rwkv":
         x = x + apply_time_mix(p.tm, h_in, cfg, wkv=wkv6_plain)
         return x + apply_channel_mix(p.tm, apply_norm(p.ln2, x, cfg.norm), cfg)
@@ -232,6 +267,8 @@ def _forward_block(kind: str, p: Block, x: torch.Tensor, cfg: ModelConfig,
     h = attention_block(p.attn, h_in, cfg, positions=positions,
                         window=_window(cfg, kind), causal=causal,
                         attention=attention)
+    if kind == "attn":
+        return x + h
 
     def cross(hc: torch.Tensor) -> torch.Tensor:
         return attention_block(p.cross, hc, cfg, positions=positions,
@@ -290,9 +327,14 @@ def block_decode(kind: str, p: Block, x: torch.Tensor,
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One token through one block; the layer's cache dict is updated in
     place (attention K/V written into their buffers, recurrent states
-    replaced; a cross-attention block reads its encoder K/V)."""
+    replaced; a cross-attention block reads its encoder K/V; a Mamba-2
+    layer's conv state rolled and its SSM state updated)."""
     check_kind(kind)
     h_in = apply_norm(p.ln1, x, cfg.norm)
+    if kind == "mamba2":
+        return x + mamba2_decode(p.mamba, h_in, cfg, cache, kernels.ssm_state_update), cache
+    if kind == "mlp":
+        return x + apply_mlp(p.mlp, h_in, cfg), cache
     if kind == "rwkv":
         h, st = apply_time_mix(p.tm, h_in, cfg,
                                state={"shift": cache["tm_shift"], "wkv": cache["wkv"]},
@@ -310,6 +352,8 @@ def block_decode(kind: str, p: Block, x: torch.Tensor,
         return _mlp_residual(p, x + h, cfg), cache
     h, cache = attention_decode(p.attn, h_in, cache, cfg, pos=pos,
                                 window=_window(cfg, kind))
+    if kind == "attn":
+        return x + h, cache
 
     def cross(hc: torch.Tensor) -> torch.Tensor:
         return cross_attention_decode(p.cross, hc, cache, cfg)
@@ -326,9 +370,15 @@ def layer_cache_shape(cfg: ModelConfig, kind: str, batch: int, s_buf: int,
                       ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """(shape, dtype) of each tensor of one layer's decode cache; with
     ``cross`` an attention layer also keeps its cross-attention's encoder
-    K/V, ``(batch, cfg.encoder_seq, K, dh)`` each."""
+    K/V, ``(batch, cfg.encoder_seq, K, dh)`` each.  A Mamba-2 layer keeps
+    its conv state ``(batch, conv_dim, taps - 1)`` in the compute dtype and
+    its SSM state ``(batch, H, P, N)`` in fp32; an MLP layer keeps none."""
     check_kind(kind)
     f32 = torch.float32
+    if kind == "mamba2":
+        return mamba2_cache_shape(cfg, batch, torch_dtype(cfg.compute_dtype))
+    if kind == "mlp":
+        return {}
     if kind == "rwkv":
         return {name: (tuple(t.shape), t.dtype)
                 for name, t in init_rwkv6_state(cfg, batch, "meta").items()}

@@ -22,9 +22,10 @@ from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import flash_attention as k1  # noqa: E402
 from repro_torch.kernels import rglru_scan as k2  # noqa: E402
+from repro_torch.kernels import ssm_state_update as k4  # noqa: E402
 from repro_torch.kernels import wkv6 as k3  # noqa: E402
 
-WRAPPED = {**k1.C_ENTRIES, **k2.C_ENTRIES, **k3.C_ENTRIES}
+WRAPPED = {**k1.C_ENTRIES, **k2.C_ENTRIES, **k3.C_ENTRIES, **k4.C_ENTRIES}
 KIND_OF_CTYPE = {ctypes.c_void_p: "pointer", ctypes.c_int: "int",
                  ctypes.c_longlong: "long long", ctypes.c_float: "float"}
 ENTRY = re.compile(r'extern\s+"C"\s+(\w+)\s+(\w+)\s*\(([^)]*)\)\s*\{')
